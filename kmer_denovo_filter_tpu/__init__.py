@@ -1,6 +1,6 @@
-"""kmer_denovo_filter_tpu — TPU-native de novo mutation k-mer engine.
+"""kmer_denovo_filter_tpu — device-native de novo mutation k-mer engine.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 jlanej/kmer_denovo_filter (reference: /root/reference):
 
 * ``kmer-denovo``   — VCF-mode candidate variant annotation with k-mer
@@ -16,8 +16,8 @@ Architectural differences from the reference (see SURVEY.md §7):
   subprocesses and Unix pipes.  This package replaces that entire layer
   with a device-resident k-mer engine: 2-bit packed canonical k-mer
   keys, sort-based counting and vectorized binary-search probing on
-  TPU via jnp/lax (with Pallas kernels for the hot probe path), plus a
-  self-contained htslib-free BAM/VCF/FASTA/BGZF/tabix I/O stack.
+  the accelerator via plain jnp/lax, plus a self-contained htslib-free
+  BAM/VCF/FASTA/BGZF/tabix I/O stack.
 * Multi-chip scaling uses ``jax.sharding.Mesh`` + ``shard_map`` with
   hash-prefix sharded k-mer tables and all-to-all query routing
   (see kmer_denovo_filter_tpu/parallel/).

@@ -234,42 +234,44 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _join_multihost():
-    """Join a multi-process deployment when configured.
+def _start():
+    """Process set-up before any pipeline code runs.
 
-    Set ``KDF_COORDINATOR`` (host:port), ``KDF_NUM_PROCESSES`` and
-    ``KDF_PROCESS_ID`` on every process to run ``kmer-denovo`` /
-    ``kmer-discovery`` across N hosts: inputs stream in per-host
-    stripes, partial results merge at module boundaries, and process 0
-    writes the outputs.  A no-op without the env vars (single-host).
+    Turns on the persistent compile cache
+    (:func:`~kmer_denovo_filter_tpu.runtime.enable_compile_cache`) and
+    joins a multi-process deployment when configured: set
+    ``KDF_COORDINATOR`` (host:port), ``KDF_NUM_PROCESSES``,
+    ``KDF_PROCESS_ID`` and, with one process per GPU,
+    ``KDF_LOCAL_DEVICE_IDS`` on every process to run ``kmer-denovo`` /
+    ``kmer-discovery`` across N processes: inputs stream in
+    per-process stripes, partial results merge at module boundaries,
+    and process 0 writes the outputs.
 
     Deliberately imports bare ``jax`` only: ``jax.distributed`` must
     join before anything touches the XLA backend, and importing the
     engine modules creates device constants (which would commit it).
     """
-    import os
+    from kmer_denovo_filter_tpu import runtime
 
-    coordinator = os.environ.get("KDF_COORDINATOR")
-    if not coordinator:
+    runtime.enable_compile_cache()
+    cfg = runtime.distributed_config()
+    if cfg is None:
         return
     import jax
 
-    jax.distributed.initialize(
-        coordinator_address=coordinator,
-        num_processes=int(os.environ["KDF_NUM_PROCESSES"]),
-        process_id=int(os.environ["KDF_PROCESS_ID"]))
+    jax.distributed.initialize(**cfg)
 
 
 def vcf_main(argv=None):
     """Entry point for ``kmer-denovo``."""
-    _join_multihost()
+    _start()
     from kmer_denovo_filter_tpu.vcf.pipeline import run_pipeline
     run_pipeline(parse_vcf_args(argv))
 
 
 def discovery_main(argv=None):
     """Entry point for ``kmer-discovery``."""
-    _join_multihost()
+    _start()
     from kmer_denovo_filter_tpu.discovery.pipeline import (
         run_discovery_pipeline,
     )
@@ -317,7 +319,7 @@ def report_main(argv=None):
 
 def main(argv=None):
     """Legacy combined entry point dispatching by mode."""
-    _join_multihost()
+    _start()
     args = parse_args(argv)
     if args.vcf is not None:
         if args.output is None:

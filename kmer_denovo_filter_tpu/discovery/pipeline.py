@@ -1,6 +1,6 @@
 """Discovery pipeline: VCF-free whole-genome proband-unique k-mer scan.
 
-TPU-native re-design of reference discovery/pipeline.py (2592 LoC).
+Device-native re-design of reference discovery/pipeline.py (2592 LoC).
 Same module structure and byte-identical text outputs; the compute
 core is different:
 
@@ -80,8 +80,8 @@ def ensure_ref_index(ref_fasta, kmer_size, ref_jf=None):
 
     Returns a :class:`kmer_denovo_filter_tpu.engine.KmerIndex`, or a
     host-resident :class:`~kmer_denovo_filter_tpu.engine.HostKmerIndex`
-    when the padded table would not fit the per-chip HBM budget
-    (single-chip whole-genome reference sets).
+    when the padded table would not fit the per-device memory budget
+    (single-device whole-genome reference sets).
     """
     if ref_jf and os.path.isfile(ref_jf):
         if ref_jf.endswith(".npz"):
@@ -229,7 +229,7 @@ def _count_parent_device(parent_bam, filter_keys, kmer_size, label,
                          stripe=None):
     """Filtered parent count (``--if`` analog) on the gated engine.
 
-    Takes host-side *filter_keys* so the HBM-budget dispatch
+    Takes host-side *filter_keys* so the memory-budget dispatch
     (``engine.make_parent_filter_counter``) decides whether the table
     materialises on device, shards across the mesh, or stays host-
     resident.  Returns int64 counts aligned with *filter_keys*.
@@ -497,53 +497,23 @@ def _scan_child_reads(child_source, proband_index, kmer_size,
     folding into *state* (see :func:`_process_hit_rows`).
     """
     scanner = eng.make_scanner(proband_index)
-    scanner_many = eng.make_scanner_many(proband_index)
     reader = getattr(child_source, "_reader", None)
     if reader is not None and getattr(reader, "_scan", None) is not None:
         it = reader.iter_packed_indexed(_ANCHOR_EXCLUDE_FLAGS,
                                         _ANCHOR_BATCH_READS)
         if it is not None:
             return _scan_child_reads_packed(
-                reader, it, scanner_many, kmer_size, min_dk_per_read,
+                reader, it, scanner, kmer_size, min_dk_per_read,
                 state, stripe, collect)
     if reader is None and getattr(child_source, "streaming", False):
         from kmer_denovo_filter_tpu.htsio import native
         if native.available():
             return _scan_child_reads_stream(
-                child_source, scanner_many, kmer_size,
+                child_source, scanner, kmer_size,
                 min_dk_per_read, state, stripe, collect)
     return _scan_child_reads_records(
         child_source, scanner, kmer_size, min_dk_per_read, state,
         stripe, collect)
-
-
-def _scan_group_size():
-    """Batches per grouped anchoring scan (the member super-batch
-    window; KDF_SB_JOIN overrides, 0/1 disables grouping).  The
-    member default is smaller than the tally's (pj.NB_JOIN_MEMBER):
-    the fan-out unsorts grow superlinearly with the joined stream."""
-    from kmer_denovo_filter_tpu.ops import pallas_join as pj
-    try:
-        return max(1, int(os.environ.get("KDF_SB_JOIN",
-                                         str(pj.NB_JOIN_MEMBER))))
-    except ValueError:
-        return pj.NB_JOIN_MEMBER
-
-
-def _drain_scan_group(group, scanner_many, kmer_size,
-                      min_dk_per_read, state, collect):
-    """Scan the buffered (codes, lengths, get_read, bi) group in one
-    super-batch device pass and fold each batch's hits in order."""
-    if not group:
-        return 0
-    founds = scanner_many([(c, l) for c, l, _g, _b in group])
-    unmapped = 0
-    for (c, l, get_read, bi), found in zip(group, founds):
-        unmapped += _process_hit_rows(
-            found, get_read, kmer_size, min_dk_per_read, state,
-            collect, bi)
-    group.clear()
-    return unmapped
 
 
 def _stream_indexed_batches(path, exclude_flags):
@@ -570,18 +540,15 @@ def _stream_indexed_batches(path, exclude_flags):
             yield out, blens, rec_idx, data, scan, refs
 
 
-def _scan_child_reads_stream(child_source, scanner_many, kmer_size,
+def _scan_child_reads_stream(child_source, scanner, kmer_size,
                              min_dk_per_read, state, stripe=None,
                              collect=None):
     """Streaming two-pass scan (WGS BAMs): native chunk decode →
-    grouped device mask (member super-batch) → lazy record decode for
-    informative rows only."""
+    device hit mask → lazy record decode for informative rows only."""
     from kmer_denovo_filter_tpu.htsio.bam import AlignedRead
 
     unmapped_informative = 0
     total_scanned = 0
-    group = []
-    group_n = _scan_group_size()
     batches = _stripe_enumerated(_stream_indexed_batches(
         child_source.path, _ANCHOR_EXCLUDE_FLAGS), stripe)
     for bi, (codes, lengths, rec_idx, data, scan,
@@ -601,18 +568,9 @@ def _scan_child_reads_stream(child_source, scanner_many, kmer_size,
             sz = int(scan["rec_sizes"][ri])
             return AlignedRead(data[o:o + sz], refs)
 
-        if group and codes.shape[0] != group[0][0].shape[0]:
-            unmapped_informative += _drain_scan_group(
-                group, scanner_many, kmer_size, min_dk_per_read,
-                state, collect)
-        group.append((codes, lengths, get_read, bi))
-        if len(group) >= group_n:
-            unmapped_informative += _drain_scan_group(
-                group, scanner_many, kmer_size, min_dk_per_read,
-                state, collect)
-    unmapped_informative += _drain_scan_group(
-        group, scanner_many, kmer_size, min_dk_per_read, state,
-        collect)
+        unmapped_informative += _process_hit_rows(
+            scanner(codes, lengths), get_read, kmer_size,
+            min_dk_per_read, state, collect, bi)
     return unmapped_informative, total_scanned
 
 
@@ -651,16 +609,13 @@ def _process_hit_rows(found, get_read, kmer_size, min_dk_per_read,
     return unmapped
 
 
-def _scan_child_reads_packed(reader, batches, scanner_many, kmer_size,
+def _scan_child_reads_packed(reader, batches, scanner, kmer_size,
                              min_dk_per_read, state, stripe=None,
                              collect=None):
-    """Two-pass scan: native packed decode → grouped device mask
-    (member super-batch) → sparse lazy record decode for informative
-    rows only."""
+    """Two-pass scan: native packed decode → device hit mask → sparse
+    lazy record decode for informative rows only."""
     unmapped_informative = 0
     total_scanned = 0
-    group = []
-    group_n = _scan_group_size()
     for bi, (codes, lengths, rec_idx) in prefetch_batches(
             _stripe_enumerated(batches, stripe)):
         total_scanned += codes.shape[0]
@@ -674,18 +629,9 @@ def _scan_child_reads_packed(reader, batches, scanner_many, kmer_size,
         def get_read(i, rec_idx=rec_idx):
             return reader.record_at(int(rec_idx[i]))
 
-        if group and codes.shape[0] != group[0][0].shape[0]:
-            unmapped_informative += _drain_scan_group(
-                group, scanner_many, kmer_size, min_dk_per_read,
-                state, collect)
-        group.append((codes, lengths, get_read, bi))
-        if len(group) >= group_n:
-            unmapped_informative += _drain_scan_group(
-                group, scanner_many, kmer_size, min_dk_per_read,
-                state, collect)
-    unmapped_informative += _drain_scan_group(
-        group, scanner_many, kmer_size, min_dk_per_read, state,
-        collect)
+        unmapped_informative += _process_hit_rows(
+            scanner(codes, lengths), get_read, kmer_size,
+            min_dk_per_read, state, collect, bi)
     return unmapped_informative, total_scanned
 
 

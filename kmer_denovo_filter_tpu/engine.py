@@ -13,7 +13,8 @@ device-resident primitives built on
   reference's chunk merge, jellyfish_wrappers.py:335–366).
 * :class:`FilteredCounter` — filtered counting against a fixed index
   (``jellyfish count -C --if`` analog, jellyfish_wrappers.py:167–176):
-  a per-table-row tally accumulated on device via binary-search probes.
+  a per-table-row tally accumulated on device via bucket-pointer
+  binary-search probes of each batch's distinct keys.
 
 Batch shapes are padded (reads to a fixed batch size, lengths to a
 multiple of 32) so XLA compiles a small number of kernels.
@@ -31,37 +32,7 @@ from kmer_denovo_filter_tpu.ops import encode as enc
 
 logger = logging.getLogger(__name__)
 
-
-def _use_pallas_join():
-    """The Pallas tile-join runs on real TPU Mosaic only;
-    ``KDF_NO_PALLAS=1`` disables it there, and
-    ``KDF_PALLAS_INTERPRET=1`` enables the (slow) Pallas interpreter
-    on other backends so tests can drive the engine's dispatch."""
-    if os.environ.get("KDF_NO_PALLAS") == "1":
-        return False
-    if os.environ.get("KDF_PALLAS_INTERPRET") == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_interpret():
-    return os.environ.get("KDF_PALLAS_INTERPRET") == "1"
-
 _SENTINEL32 = np.uint32(0xFFFFFFFF)
-
-# Tables at or below this padded size use the all-pairs VPU sweep
-# (ops/device.py:small_table_tally) instead of the bucketed probe.
-# Measured crossover on v5e (PERF.md): the O(N·M) sweep beats the
-# gather-bound bucketed probe up to M ≈ 10^5.
-_SMALL_TABLE_M = 65536
-# Above the sweep and up to this size, filtered tallies use the
-# hash-partitioned sweep (ops/device.py:partitioned_tally_step) —
-# measured ~120k reads/s on v5e *flat in M* (per-partition work is
-# constant because P scales with M); beyond it, block memory
-# (P*cap_t*8B + the tally) outgrows HBM and the dedup + bucket-pointer
-# probe takes over.
-_MID_TABLE_M = 1 << 28
-
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
@@ -118,60 +89,6 @@ class KmerIndex:
         off, max_bucket = dev.build_bucket_offsets(padded, self.p_bits)
         self.off = jnp.asarray(off)
         self.rounds = max(1, (max_bucket + 1).bit_length())
-        # small tables take the gather-free all-pairs VPU sweep
-        self.small = self.m_pad <= _SMALL_TABLE_M
-        # chunk x m_pad ~ 2^26 compare-pairs per scan step: measured
-        # optimum on v5e (PERF.md: 16384 @ m=4096 beats 8192/32768)
-        raw_chunk = max(1024, min(131072,
-                                  (1 << 26) // max(self.m_pad, 1)))
-        self.small_chunk = 1 << (raw_chunk.bit_length() - 1)
-        # mid-size tables: hash-partitioned sweep state (built lazily)
-        self.mid = (not self.small) and self.m_pad <= _MID_TABLE_M
-        self._hash_parts = None
-        self._tile_parts = None
-        self._tile_parts_wide = None
-
-    def small_mixed(self):
-        """Lazily mix the padded small table into route space
-        (W == 2): equality in mixed space ≡ equality in key space, so
-        the dedup-first small sweep compares mixed words directly."""
-        if getattr(self, "_small_mixed", None) is None:
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            self._small_mixed = pj._mix_keys(self.table[:, 0],
-                                             self.table[:, 1])
-        return self._small_mixed
-
-    def hash_partitions(self):
-        """Lazily build (tblocks, perm, p_bits) for the partitioned sweep."""
-        if self._hash_parts is None:
-            p_bits = max(4, self.m_pad.bit_length() - 9)  # ~512/part
-            blocks, _counts, perm = dev.build_hash_partitions(
-                np.ascontiguousarray(self.keys_np, np.uint32), p_bits)
-            self._hash_parts = (jnp.asarray(blocks), perm, p_bits)
-        return self._hash_parts
-
-    def tile_partitions(self):
-        """Lazily build lane-major (t0, t1, perm, p) for the Pallas
-        tile-join (W == 2 only)."""
-        if self._tile_parts is None:
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            t0, t1, perm, p = pj.build_tile_partitions(
-                np.ascontiguousarray(self.keys_np, np.uint32))
-            self._tile_parts = (jnp.asarray(t0), jnp.asarray(t1),
-                                perm, p)
-        return self._tile_parts
-
-    def tile_partitions_wide(self):
-        """Lazily build (planes tuple, perm, p) for the generic-W
-        tile-join (3 ≤ W ≤ 8, i.e. 31 < k ≤ 127)."""
-        if self._tile_parts_wide is None:
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            planes, perm, p = pj.build_tile_partitions_wide(
-                np.ascontiguousarray(self.keys_np, np.uint32))
-            self._tile_parts_wide = (
-                tuple(jnp.asarray(planes[j])
-                      for j in range(planes.shape[0])), perm, p)
-        return self._tile_parts_wide
 
     def save(self, path):
         """Snapshot the table to ``.npz`` (keys [, counts], k) — the
@@ -207,14 +124,9 @@ class KmerIndex:
         if query_keys_np.shape[0] == 0:
             return np.zeros(0, dtype=bool)
         q = jnp.asarray(np.ascontiguousarray(query_keys_np, np.uint32))
-        if self.small:
-            found = np.array(dev.small_table_member(
-                self.table, q, self.w, self.small_chunk))
-        else:
-            _idx, found = dev.lookup_bucketed(
-                self.table, self.off, q, self.w, self.p_bits,
-                self.rounds)
-            found = np.array(found)
+        _idx, found = dev.lookup_bucketed(
+            self.table, self.off, q, self.w, self.p_bits, self.rounds)
+        found = np.array(found)
         # sentinel queries would match sentinel padding — mask them
         sent = (query_keys_np == _SENTINEL32).all(axis=1)
         found[sent] = False
@@ -236,7 +148,7 @@ class KmerIndex:
 
 
 class HostKmerIndex:
-    """Host-resident membership index for tables too large for HBM.
+    """Host-resident membership index for tables too large for a device.
 
     A whole-genome *reference* set (~2.4B canonical 31-mers ≈ 19 GB of
     keys) cannot be device-resident on one chip; this is the analog of
@@ -294,27 +206,49 @@ class HostKmerIndex:
         return np.where(found & ~sent, self.counts_np[pos], 0)
 
 
-# A device table larger than this stays on the host (single-chip WGS
-# reference sets; padded table bytes ≈ 2× key bytes).
-_DEVICE_TABLE_MAX_BYTES = int(os.environ.get(
-    "KDF_DEVICE_TABLE_BYTES", 8 << 30))
+# Budget for backends that report no memory statistics (the CPU).
+_DEFAULT_TABLE_BYTES = 8 << 30
+
+
+def device_table_budget():
+    """Largest padded table, in bytes, that one device should hold.
+
+    Half of the device's allocatable memory
+    (``memory_stats()["bytes_limit"]``): a filtered tally adds an
+    int32 per padded row (half the table's bytes at W == 2), and the
+    last quarter holds read batches and the step's sort and extract
+    intermediates.  ``KDF_DEVICE_TABLE_BYTES`` overrides; backends
+    without memory statistics get ``_DEFAULT_TABLE_BYTES``.
+    """
+    env = os.environ.get("KDF_DEVICE_TABLE_BYTES")
+    if env is not None:
+        return int(env)
+    stats = jax.local_devices()[0].memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return _DEFAULT_TABLE_BYTES
+    return int(stats["bytes_limit"]) // 2
+
+
+def _padded_table_bytes(keys_np):
+    n = keys_np.shape[0]
+    return (1 << max(0, (n - 1).bit_length())) * keys_np.shape[1] * 4 \
+        if n else 0
 
 
 def make_membership_index(keys_np, k, counts_np=None):
-    """Membership index with a per-chip HBM budget gate.
+    """Membership index with a per-device memory budget gate.
 
     Tables whose padded device form exceeds the budget go to the
-    sharded index on a multi-device mesh (each chip holds 1/S of the
-    table, probes route over ICI) or to the host-resident
-    :class:`HostKmerIndex` on one chip — the single-chip analog of the
-    reference's mmap'd jellyfish index.
+    sharded index on a multi-device mesh (each device holds 1/S of the
+    table, probes route over the interconnect) or to the host-resident
+    :class:`HostKmerIndex` on one device — the single-device analog of
+    the reference's mmap'd jellyfish index.
     """
-    padded_bytes = (1 << max(0, (keys_np.shape[0] - 1).bit_length())) \
-        * keys_np.shape[1] * 4 if keys_np.shape[0] else 0
-    if padded_bytes > _DEVICE_TABLE_MAX_BYTES:
+    padded_bytes = _padded_table_bytes(keys_np)
+    budget = device_table_budget()
+    if padded_bytes > budget:
         n_dev = len(jax.devices())
-        if n_dev >= 2 and padded_bytes // n_dev <= \
-                _DEVICE_TABLE_MAX_BYTES:
+        if n_dev >= 2 and padded_bytes // n_dev <= budget:
             from kmer_denovo_filter_tpu.parallel import (
                 ShardedKmerIndex,
                 make_mesh,
@@ -393,7 +327,7 @@ class StreamCounter:
 
         Chunked with k-1 overlap so no window is lost; chunk lengths
         pad to the next power of two so at most ~10 kernel shapes serve
-        any contig set (remote TPU compiles cost minutes per shape).
+        any contig set.
         """
         codes = enc.ASCII_TO_CODE[
             np.frombuffer(seq.upper().encode("ascii"), dtype=np.uint8)]
@@ -455,14 +389,14 @@ class ShardedStreamCounter(StreamCounter):
 def make_stream_counter(k):
     """:class:`StreamCounter`, or its mesh-sharded analog.
 
-    Sharding is automatic on multi-chip TPU meshes; ``KDF_SHARDED=1``
-    forces it on any multi-device backend (the CPU test mesh) and
-    ``KDF_SHARDED=0`` disables it.
+    Sharding is automatic on multi-device accelerator backends;
+    ``KDF_SHARDED=1`` forces it on any multi-device backend (the CPU
+    test mesh) and ``KDF_SHARDED=0`` disables it.
     """
     mode = os.environ.get("KDF_SHARDED")
     multi = len(jax.devices()) > 1
     if multi and mode != "0" and (
-            mode == "1" or jax.default_backend() == "tpu"):
+            mode == "1" or jax.default_backend() != "cpu"):
         from kmer_denovo_filter_tpu.parallel import make_mesh
         logger.info("  sharded stream counter: %d-device mesh",
                     len(jax.devices()))
@@ -471,602 +405,71 @@ def make_stream_counter(k):
 
 
 class FilteredCounter:
-    """Count stream k-mers restricted to a fixed index (``--if`` analog)."""
+    """Count stream k-mers restricted to a fixed index (``--if`` analog).
+
+    One fused device step per batch
+    (ops/device.py:filtered_tally_step_bucketed): extract windows →
+    sort-count dedup (coverage-local batches dedup ~7–30×) → bucket-
+    pointer probe of the distinct keys → tally scatter.  On the H100
+    this single tier beats the all-pairs and hash-partitioned sweeps
+    at every table size measured, 2^12 to 2^29 keys (PERF.md).
+    """
 
     def __init__(self, index):
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
         self.index = index
-        use_pallas = not index.small and _use_pallas_join()
-        self.pallas = use_pallas and index.w == 2
-        self.pallas_wide = (use_pallas
-                            and 3 <= index.w <= pj.MAX_W_WIDE)
-        self.w_part = None
-        if self.pallas:
-            t0, _t1, _perm, _p = index.tile_partitions()
-            self.acc = jnp.zeros(t0.shape, dtype=jnp.int32)
-            self.w_part = pj.W_PART_TALLY
-            # Dedup-first tally (pj.join_tally_step_dedup): collapse
-            # coverage duplicates before the global route sort + join.
-            # Disabled per-counter once a batch shows the stream does
-            # not dedup (u_chunk doubled past half the local chunk).
-            self._dedup = os.environ.get("KDF_DEDUP_JOIN") != "0"
-            self._dd_w_part = pj.W_PART_DD
-            self._dd_u_chunk = pj.U_CHUNK_DD
-            # Super-batch joining: buffer same-shape batches and join
-            # their per-batch compacted streams once per NB_JOIN
-            # batches, amortising the kernel's whole-table compare
-            # term (pj.join_tally_superbatch_dedup).  KDF_SB_JOIN
-            # overrides the window (0 disables).
-            sbj = os.environ.get("KDF_SB_JOIN")
-            self._sb_join = (int(sbj) if sbj is not None
-                             else pj.NB_JOIN) if self._dedup else 0
-            self._sb_w_part = pj.W_PART_SB
-            self._sb_buf = []
-        elif self.pallas_wide:
-            planes, _perm, p = index.tile_partitions_wide()
-            self.acc = jnp.zeros(planes[0].shape, dtype=jnp.int32)
-            self.w_part = min(pj.W_PART_TALLY,
-                              pj.max_wide_w_part_tally(index.w))
-            self._dedup = os.environ.get("KDF_DEDUP_JOIN") != "0"
-            self._dd_w_part = min(pj.W_PART_TALLY,
-                                  pj.wide_dd_w_part_cap(index.w))
-            self._dd_u_chunk = pj.U_CHUNK_DD
-            # Window-sparse batches (large k ⇒ few windows per read)
-            # would spread a chunk's queries over more partitions than
-            # the VMEM window covers; accumulate extracted keys across
-            # feeds and join once per dense super-batch (~256 queries
-            # per partition keeps chunk spans ≤ ~40 rows).
-            self._wide_buf = []
-            self._wide_buf_rows = 0
-            self._wide_flush_rows = 256 * p
-        elif index.mid and not index.small:
-            tblocks, _perm, _p_bits = index.hash_partitions()
-            self.acc = jnp.zeros(tblocks.shape[:2], dtype=jnp.int32)
-        else:
-            self.acc = jnp.zeros(index.m_pad, dtype=jnp.int32)
+        self.acc = jnp.zeros(index.m_pad, dtype=jnp.int32)
         self._pending = None
-        self._host_corr = None
+
+    def _step(self, acc, codes_j, lens_j, cap):
+        idx = self.index
+        return dev.filtered_tally_step_bucketed(
+            idx.table, idx.off, acc, codes_j, lens_j, idx.k, idx.w,
+            idx.m_pad, cap, idx.p_bits, idx.rounds)
 
     def _resolve_pending(self):
         """Settle the overflow flag of the previously dispatched batch.
 
         The flag read is a device sync, so it is deferred one batch:
         the host decodes batch *i+1* while the device still crunches
-        batch *i*, and the rare overflow replays batch *i* exactly
-        from its saved pre-batch accumulator at a doubled capacity.
+        batch *i*.  A batch with more distinct keys than the dedup
+        capacity replays exactly from its saved pre-batch accumulator
+        at full capacity (every window its own slot).
         """
         if self._pending is None:
             return
-        kind, codes_j, lens_j, acc_before, overflow, cap = self._pending
+        codes_j, lens_j, acc_before, overflow = self._pending
         self._pending = None
-        if not bool(overflow):
-            return
-        idx = self.index
-        try_current = False  # set on dedup fallthrough (see below)
-        if kind == "small_dd":
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            th, tl = idx.small_mixed()
-            grouped = codes_j.ndim == 3
-            while True:
-                if self._sm_u_chunk * 2 > pj.LCHUNK_DD // 2:
-                    # stream doesn't dedup — the local sort stops
-                    # paying; replay plain and stay there
-                    self._small_dedup = False
-                    break
-                self._sm_u_chunk *= 2
-                if grouped:
-                    acc, ovf = pj.small_tally_steps_dedup(
-                        th, tl, acc_before, codes_j, lens_j, idx.k,
-                        self._sm_u_chunk, idx.small_chunk,
-                        interpret=_pallas_interpret())
-                else:
-                    acc, ovf = pj.small_tally_step_dedup(
-                        th, tl, acc_before, codes_j, lens_j, idx.k,
-                        self._sm_u_chunk, idx.small_chunk,
-                        interpret=_pallas_interpret())
-                if not bool(ovf):
-                    self.acc = acc
-                    return
-            if grouped:
-                self.acc = dev.small_tally_steps(
-                    idx.table, acc_before, codes_j, lens_j, idx.k,
-                    idx.w, idx.small_chunk)
-            else:
-                self.acc = dev.small_tally_step(
-                    idx.table, acc_before, codes_j, lens_j, idx.k,
-                    idx.w, idx.small_chunk)
-            return
-        if kind == "pallas_sb":
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            t0, t1, _perm, p = idx.tile_partitions()
-            codes_nb, lens_nb = codes_j, lens_j
-            ovf_s, ovf_u = cap
-            w_part = self._sb_w_part
-            while True:
-                if bool(ovf_u):
-                    if self._dd_u_chunk * 2 > pj.LCHUNK_DD // 2:
-                        break
-                    self._dd_u_chunk *= 2
-                if bool(ovf_s):
-                    if w_part >= 256:  # VMEM cap for 4 window blocks
-                        break
-                    w_part = min(w_part * 2, 256)
-                    self._sb_w_part = w_part
-                acc, ovf_s, ovf_u = pj.join_tally_superbatch_dedup(
-                    t0, t1, acc_before, codes_nb, lens_nb, idx.k, p,
-                    w_part, self._dd_u_chunk,
-                    interpret=_pallas_interpret())
-                if not bool(ovf_s) and not bool(ovf_u):
-                    self.acc = acc
-                    return
-            # super-batch ladder exhausted: fold the batches one by
-            # one through the full single-batch ladder (exact)
-            acc = acc_before
-            for i in range(codes_nb.shape[0]):
-                acc = self._tally_one_batch_sync(
-                    acc, codes_nb[i], lens_nb[i])
-            self.acc = acc
-            return
-        if kind == "pallas_dd":
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            t0, t1, _perm, p = idx.tile_partitions()
-            ovf_s, ovf_u = cap
-            while self._dedup:
-                if bool(ovf_u):
-                    if self._dd_u_chunk * 2 > pj.LCHUNK_DD // 2:
-                        # stream doesn't dedup — the local sort stops
-                        # paying; replay plain and stay there
-                        self._dedup = False
-                        break
-                    self._dd_u_chunk *= 2
-                if bool(ovf_s):
-                    if self._dd_w_part >= pj.MAX_W_PART_TALLY:
-                        self._dedup = False
-                        break
-                    self._dd_w_part = min(self._dd_w_part * 2,
-                                          pj.MAX_W_PART_TALLY)
-                acc, ovf_s, ovf_u = pj.join_tally_step_dedup(
-                    t0, t1, acc_before, codes_j, lens_j, idx.k, p,
-                    self._dd_w_part, self._dd_u_chunk,
-                    interpret=_pallas_interpret())
-                if not bool(ovf_s) and not bool(ovf_u):
-                    self.acc = acc
-                    return
-            kind = "pallas"  # replay through the plain-path ladder
-            try_current = True  # plain join untried at self.w_part
-        if kind == "pallas_wide_dd":
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            planes, _perm, p = idx.tile_partitions_wide()
-            w_cap = pj.wide_dd_w_part_cap(idx.w)
-            ovf_s, ovf_u = cap
-            while self._dedup:
-                if bool(ovf_u):
-                    if self._dd_u_chunk * 2 > pj.LCHUNK_DD // 2:
-                        self._dedup = False
-                        break
-                    self._dd_u_chunk *= 2
-                if bool(ovf_s):
-                    if self._dd_w_part >= w_cap:
-                        self._dedup = False
-                        break
-                    self._dd_w_part = min(self._dd_w_part * 2, w_cap)
-                acc, ovf_s, ovf_u = pj.join_tally_flat_wide_dedup(
-                    planes, acc_before, codes_j, p, self._dd_w_part,
-                    self._dd_u_chunk, interpret=_pallas_interpret())
-                if not bool(ovf_s) and not bool(ovf_u):
-                    self.acc = acc
-                    return
-            kind = "pallas_wide"  # replay through the plain ladder
-            try_current = True  # plain join untried at self.w_part
-        if kind in ("pallas", "pallas_wide"):
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            if kind == "pallas":
-                t0, t1, _perm, p = idx.tile_partitions()
-                w_cap = pj.MAX_W_PART_TALLY
-
-                def attempt(acc0):
-                    return pj.join_tally_step(
-                        t0, t1, acc0, codes_j, lens_j, idx.k, p,
-                        self.w_part, interpret=_pallas_interpret())
-            else:
-                # codes_j holds the accumulated flat key super-batch
-                planes, _perm, p = idx.tile_partitions_wide()
-                w_cap = pj.max_wide_w_part_tally(idx.w)
-
-                def attempt(acc0):
-                    return pj.join_tally_flat_wide(
-                        planes, acc0, codes_j, p, self.w_part,
-                        interpret=_pallas_interpret())
-            while True:
-                if try_current:
-                    # dedup fallthrough: the plain join has not run at
-                    # the current self.w_part yet — attempt it once
-                    # before doubling (otherwise a capacity level is
-                    # skipped when w_part already equals the cap)
-                    try_current = False
-                elif self.w_part >= w_cap:
-                    # sparse/skewed batch: its few distinct keys spread
-                    # over more partitions than the largest window
-                    # covers (e.g. the near-empty final batch of a
-                    # file).  Tally it exactly via dedup + host-side
-                    # searchsorted — one rare host round-trip.
-                    if kind == "pallas":
-                        self._tally_batch_on_host(codes_j, lens_j)
-                    else:
-                        self._tally_flat_on_host(codes_j)
-                    acc = acc_before
-                    break
-                else:
-                    self.w_part = min(self.w_part * 2, w_cap)
-                acc, overflow = attempt(acc_before)
-                if not bool(overflow):
-                    break
-        elif kind == "mid":
-            tblocks, _perm, p_bits = idx.hash_partitions()
-            cap_q = cap
-            while True:
-                cap_q *= 2
-                acc, overflow = dev.partitioned_tally_step(
-                    tblocks, acc_before, codes_j, lens_j, idx.k,
-                    idx.w, p_bits, cap_q)
-                if not bool(overflow):
-                    break
-        else:  # bucketed: batch defeated dedup — retry at full cap
-            acc, _overflow = dev.filtered_tally_step_bucketed(
-                idx.table, idx.off, acc_before, codes_j, lens_j,
-                idx.k, idx.w, idx.m_pad, cap, idx.p_bits, idx.rounds)
-        self.acc = acc
-
-    def _tally_batch_on_host(self, codes_j, lens_j):
-        """Exact tally of one batch that defeated every tile window.
-
-        Device dedup (sort-count) then host searchsorted into the
-        index's lexicographically sorted keys; counts accumulate in a
-        host-side correction added by :meth:`result`.  Only sparse
-        batches reach this, so the device→host unique set is small.
-        """
-        idx = self.index
-        keys, _valid = dev.extract_canonical_windows(
-            codes_j, lens_j, idx.k)
-        self._tally_flat_on_host(keys.reshape(-1, idx.w))
-
-    def _tally_flat_on_host(self, flat_j):
-        """Exact host tally of a flat key stream (see above)."""
-        idx = self.index
-        skeys, starts, counts = dev.sort_count(flat_j, idx.w)
-        skeys = np.asarray(skeys)
-        mask = np.asarray(starts) & ~(skeys == _SENTINEL32).all(axis=1)
-        uk = skeys[mask]
-        uc = np.asarray(counts)[mask].astype(np.int64)
-        # big-endian byte view: memcmp order == word-wise unsigned
-        # order for any key width
-        width = f"S{4 * idx.w}"
-        tbl = np.ascontiguousarray(
-            idx.keys_np.astype(">u4")).view(width).ravel()
-        q = np.ascontiguousarray(uk.astype(">u4")).view(width).ravel()
-        pos = np.searchsorted(tbl, q)
-        pos_c = np.minimum(pos, idx.n - 1)
-        hit = tbl[pos_c] == q
-        if self._host_corr is None:
-            self._host_corr = np.zeros(idx.n, dtype=np.int64)
-        np.add.at(self._host_corr, pos_c[hit], uc[hit])
-
-    def _feed_pallas(self, codes_j, lens_j):
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        idx = self.index
-        t0, t1, _perm, p = idx.tile_partitions()
-        if self._dedup and self._sb_join > 1:
-            # buffer same-shape batches for the super-batch join; a
-            # shape change (e.g. the file's final short batch) flushes
-            # the buffer first so stacking stays rectangular
-            if self._sb_buf and (
-                    self._sb_buf[0][0].shape != codes_j.shape):
-                self._flush_superbatch()
-            self._sb_buf.append((codes_j, lens_j))
-            if len(self._sb_buf) >= self._sb_join:
-                self._flush_superbatch()
-            return
-        self._resolve_pending()
-        # acc_before stays valid across a failed attempt: the kernel's
-        # io-alias gets a fresh XLA copy because _pending still holds
-        # the input buffer, so replaying from it is exact.
-        acc_before = self.acc
-        if self._dedup:
-            acc, ovf_s, ovf_u = pj.join_tally_step_dedup(
-                t0, t1, acc_before, codes_j, lens_j, idx.k, p,
-                self._dd_w_part, self._dd_u_chunk,
-                interpret=_pallas_interpret())
-            self.acc = acc
-            self._pending = ("pallas_dd", codes_j, lens_j, acc_before,
-                             ovf_s | ovf_u, (ovf_s, ovf_u))
-            return
-        acc, overflow = pj.join_tally_step(
-            t0, t1, acc_before, codes_j, lens_j, idx.k, p, self.w_part,
-            interpret=_pallas_interpret())
-        self.acc = acc
-        self._pending = ("pallas", codes_j, lens_j, acc_before,
-                         overflow, None)
-
-    def _flush_superbatch(self):
-        """Join the buffered batches' compacted streams in one pass.
-
-        Single-batch buffers take the ordinary dedup step; overflow
-        resolution replays the whole super-batch (deferred, exact —
-        see :meth:`_resolve_pending`).
-        """
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        if not self._sb_buf:
-            return
-        idx = self.index
-        t0, t1, _perm, p = idx.tile_partitions()
-        buf = self._sb_buf
-        self._sb_buf = []
-        self._resolve_pending()
-        acc_before = self.acc
-        if len(buf) < self._sb_join:
-            # partial group (shape change / end of stream): replay
-            # through the single-batch path — every group size would
-            # otherwise compile its own scan graph
-            for codes_j, lens_j in buf:
-                self._resolve_pending()
-                acc_before = self.acc
-                acc, ovf_s, ovf_u = pj.join_tally_step_dedup(
-                    t0, t1, acc_before, codes_j, lens_j, idx.k, p,
-                    self._dd_w_part, self._dd_u_chunk,
-                    interpret=_pallas_interpret())
-                self.acc = acc
-                self._pending = ("pallas_dd", codes_j, lens_j,
-                                 acc_before, ovf_s | ovf_u,
-                                 (ovf_s, ovf_u))
-            return
-        codes_nb = jnp.stack([c for c, _ in buf])
-        lens_nb = jnp.stack([l for _, l in buf])
-        acc, ovf_s, ovf_u = pj.join_tally_superbatch_dedup(
-            t0, t1, acc_before, codes_nb, lens_nb, idx.k, p,
-            self._sb_w_part, self._dd_u_chunk,
-            interpret=_pallas_interpret())
-        self.acc = acc
-        self._pending = ("pallas_sb", codes_nb, lens_nb, acc_before,
-                         ovf_s | ovf_u, (ovf_s, ovf_u))
-
-    def _tally_one_batch_sync(self, acc, codes_j, lens_j):
-        """Synchronous exact tally of one batch with the full ladder
-        (dedup → plain windows → host escape).  Used when a
-        super-batch replay gives up and folds its batches one by one.
-        """
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        idx = self.index
-        t0, t1, _perm, p = idx.tile_partitions()
-        if self._dedup:
-            u_chunk, w_part = self._dd_u_chunk, self._dd_w_part
-            while True:
-                out, ovf_s, ovf_u = pj.join_tally_step_dedup(
-                    t0, t1, acc, codes_j, lens_j, idx.k, p, w_part,
-                    u_chunk, interpret=_pallas_interpret())
-                if not bool(ovf_s) and not bool(ovf_u):
-                    return out
-                if bool(ovf_u):
-                    if u_chunk * 2 > pj.LCHUNK_DD // 2:
-                        break
-                    u_chunk *= 2
-                if bool(ovf_s):
-                    if w_part >= pj.MAX_W_PART_TALLY:
-                        break
-                    w_part = min(w_part * 2, pj.MAX_W_PART_TALLY)
-        w_part = self.w_part
-        while True:
-            out, overflow = pj.join_tally_step(
-                t0, t1, acc, codes_j, lens_j, idx.k, p, w_part,
-                interpret=_pallas_interpret())
-            if not bool(overflow):
-                return out
-            if w_part >= pj.MAX_W_PART_TALLY:
-                self._tally_batch_on_host(codes_j, lens_j)
-                return acc
-            w_part = min(w_part * 2, pj.MAX_W_PART_TALLY)
-
-    def _feed_pallas_wide(self, codes_j, lens_j):
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        idx = self.index
-        flat = pj.extract_flat_keys(codes_j, lens_j, idx.k)
-        self._wide_buf.append(flat)
-        self._wide_buf_rows += flat.shape[0]
-        if self._wide_buf_rows >= self._wide_flush_rows:
-            self._flush_wide()
-
-    def _flush_wide(self):
-        """Join the accumulated wide-key super-batch."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        if not self._wide_buf:
-            return
-        idx = self.index
-        planes, _perm, p = idx.tile_partitions_wide()
-        flat = (self._wide_buf[0] if len(self._wide_buf) == 1
-                else jnp.concatenate(self._wide_buf, axis=0))
-        self._wide_buf = []
-        self._wide_buf_rows = 0
-        self._resolve_pending()
-        acc_before = self.acc
-        if self._dedup:
-            acc, ovf_s, ovf_u = pj.join_tally_flat_wide_dedup(
-                planes, acc_before, flat, p, self._dd_w_part,
-                self._dd_u_chunk, interpret=_pallas_interpret())
-            self.acc = acc
-            self._pending = ("pallas_wide_dd", flat, None, acc_before,
-                             ovf_s | ovf_u, (ovf_s, ovf_u))
-            return
-        acc, overflow = pj.join_tally_flat_wide(
-            planes, acc_before, flat, p, self.w_part,
-            interpret=_pallas_interpret())
-        self.acc = acc
-        self._pending = ("pallas_wide", flat, None, acc_before,
-                         overflow, None)
+        if bool(overflow):
+            n_windows = codes_j.shape[0] * (codes_j.shape[1]
+                                            - self.index.k + 1)
+            self.acc, _ = self._step(acc_before, codes_j, lens_j,
+                                     1 << (n_windows - 1).bit_length())
 
     def feed(self, codes, lengths):
         codes_p, lens_p = pad_read_batch(codes, lengths)
         b, length = codes_p.shape
         n_windows = b * (length - self.index.k + 1)
-        cap = _dedup_cap(n_windows)
         codes_j = jnp.asarray(codes_p)
         lens_j = jnp.asarray(lens_p)
-        idx = self.index
-        if idx.small:
-            # scan-folded dispatch: buffer same-shape batches and fold
-            # them through one jit call (the sweep has no overflow
-            # cases, so this is pure dispatch amortisation)
-            if not hasattr(self, "_small_buf"):
-                sbj = os.environ.get("KDF_SB_JOIN")
-                from kmer_denovo_filter_tpu.ops import pallas_join as pj
-                self._small_join = (int(sbj) if sbj is not None
-                                    else pj.NB_JOIN)
-                self._small_buf = []
-                # dedup-first sweep: the same machinery as the big
-                # tile-join's front half cuts the sweep's compare
-                # volume to the compacted-capacity fraction (~22%)
-                self._small_dedup = (
-                    idx.w == 2 and _use_pallas_join()
-                    and os.environ.get("KDF_SMALL_DEDUP") != "0")
-                self._sm_u_chunk = pj.U_CHUNK_DD
-            if self._small_join > 1:
-                if self._small_buf and (
-                        self._small_buf[0][0].shape != codes_j.shape):
-                    self._flush_small()
-                self._small_buf.append((codes_j, lens_j))
-                if len(self._small_buf) >= self._small_join:
-                    self._flush_small()
-                return
-            if self._small_dedup:
-                from kmer_denovo_filter_tpu.ops import pallas_join as pj
-                th, tl = idx.small_mixed()
-                self._resolve_pending()
-                acc_before = self.acc
-                acc, ovf = pj.small_tally_step_dedup(
-                    th, tl, acc_before, codes_j, lens_j, idx.k,
-                    self._sm_u_chunk, idx.small_chunk,
-                    interpret=_pallas_interpret())
-                self.acc = acc
-                self._pending = ("small_dd", codes_j, lens_j,
-                                 acc_before, ovf, None)
-                return
-            self.acc = dev.small_tally_step(
-                idx.table, self.acc, codes_j, lens_j, idx.k, idx.w,
-                idx.small_chunk)
-            return
-        if self.pallas:
-            self._feed_pallas(codes_j, lens_j)
-            return
-        if self.pallas_wide:
-            self._feed_pallas_wide(codes_j, lens_j)
-            return
-        if idx.mid:
-            tblocks, _perm, p_bits = idx.hash_partitions()
-            cap_q = 1 << max(
-                4, (2 * n_windows >> p_bits).bit_length())
-            self._resolve_pending()
-            acc_before = self.acc
-            acc, overflow = dev.partitioned_tally_step(
-                tblocks, acc_before, codes_j, lens_j, idx.k, idx.w,
-                p_bits, cap_q)
-            self.acc = acc
-            self._pending = ("mid", codes_j, lens_j, acc_before,
-                             overflow, cap_q)
-            return
         self._resolve_pending()
         acc_before = self.acc
-        acc, overflow = dev.filtered_tally_step_bucketed(
-            idx.table, idx.off, acc_before, codes_j, lens_j,
-            idx.k, idx.w, idx.m_pad, cap, idx.p_bits, idx.rounds)
-        self.acc = acc
-        self._pending = ("bucketed", codes_j, lens_j, acc_before,
-                         overflow, 1 << (n_windows - 1).bit_length())
-
-    def _flush_small(self):
-        """Fold the buffered small-table batches in one dispatch.
-
-        Partial groups replay per batch so only the full-group scan
-        shape is ever compiled.
-        """
-        idx = self.index
-        buf = self._small_buf
-        self._small_buf = []
-        if not buf:
-            return
-        if len(buf) < self._small_join:
-            for codes_j, lens_j in buf:
-                if self._small_dedup:
-                    from kmer_denovo_filter_tpu.ops import \
-                        pallas_join as pj
-                    th, tl = idx.small_mixed()
-                    self._resolve_pending()
-                    acc_before = self.acc
-                    acc, ovf = pj.small_tally_step_dedup(
-                        th, tl, acc_before, codes_j, lens_j, idx.k,
-                        self._sm_u_chunk, idx.small_chunk,
-                        interpret=_pallas_interpret())
-                    self.acc = acc
-                    self._pending = ("small_dd", codes_j, lens_j,
-                                     acc_before, ovf, None)
-                else:
-                    self.acc = dev.small_tally_step(
-                        idx.table, self.acc, codes_j, lens_j, idx.k,
-                        idx.w, idx.small_chunk)
-            return
-        codes_nb = jnp.stack([c for c, _ in buf])
-        lens_nb = jnp.stack([l for _, l in buf])
-        if self._small_dedup:
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            th, tl = idx.small_mixed()
-            self._resolve_pending()
-            acc_before = self.acc
-            acc, ovf = pj.small_tally_steps_dedup(
-                th, tl, acc_before, codes_nb, lens_nb, idx.k,
-                self._sm_u_chunk, idx.small_chunk,
-                interpret=_pallas_interpret())
-            self.acc = acc
-            self._pending = ("small_dd", codes_nb, lens_nb,
-                             acc_before, ovf, None)
-            return
-        self.acc = dev.small_tally_steps(
-            idx.table, self.acc, codes_nb, lens_nb, idx.k, idx.w,
-            idx.small_chunk)
+        self.acc, overflow = self._step(acc_before, codes_j, lens_j,
+                                        _dedup_cap(n_windows))
+        self._pending = (codes_j, lens_j, acc_before, overflow)
 
     def result(self):
         """int64 counts aligned with the index's sorted keys."""
-        idx = self.index
-        if self.pallas_wide:
-            self._flush_wide()  # join any buffered partial super-batch
-        if self.pallas and getattr(self, "_sb_buf", None):
-            self._flush_superbatch()
-        if getattr(self, "_small_buf", None):
-            self._flush_small()
         self._resolve_pending()
-        if self.pallas or self.pallas_wide:
-            if self.pallas:
-                _t0, _t1, perm, _p = idx.tile_partitions()
-            else:
-                _planes, perm, _p = idx.tile_partitions_wide()
-            acc = np.asarray(self.acc)[:perm.shape[0]]
-            out = np.zeros(idx.n, dtype=np.int64)
-            valid = perm >= 0
-            out[perm[valid]] = acc[valid]
-        elif idx.mid and not idx.small:
-            _tblocks, perm, _p_bits = idx.hash_partitions()
-            acc = np.asarray(self.acc)
-            out = np.zeros(idx.n, dtype=np.int64)
-            valid = perm >= 0
-            out[perm[valid]] = acc[valid]
-        else:
-            out = np.asarray(self.acc)[:idx.n].astype(np.int64)
-        if self._host_corr is not None:
-            out = out + self._host_corr
-        return out
+        return np.asarray(self.acc)[:self.index.n].astype(np.int64)
 
 
 def scan_reads_for_hits(index, codes, lengths):
     """Window hit mask of a read batch against *index*.
 
     The anchoring-scan primitive (replaces the per-read Aho-Corasick /
-    jellyfish-query loop of reference core/bam_scanner.py:340–507).
+    jellyfish-query loop of reference core/bam_scanner.py:340–507):
+    extract → sort-count dedup → bucket-pointer probe of the distinct
+    keys → verdicts back through the sort permutation.
 
     Returns a (B, S) bool numpy array: window *s* of read *b* is a
     canonical k-mer present in the index.
@@ -1074,121 +477,11 @@ def scan_reads_for_hits(index, codes, lengths):
     codes_p, lens_p = pad_read_batch(codes, lengths)
     b, length = codes_p.shape
     n_windows = b * (length - index.k + 1)
-    cap = _dedup_cap(n_windows)
     codes_j = jnp.asarray(codes_p)
     lens_j = jnp.asarray(lens_p)
-    if index.small:
-        if (index.w == 2 and _use_pallas_join()
-                and os.environ.get("KDF_SMALL_DEDUP") != "0"
-                and getattr(index, "_small_member_dedup_ok", True)):
-            # dedup-first sweep: the order-free all-pairs member runs
-            # over the compacted stream (~22% of the raw rows); bits
-            # fan back out via the segmented expansion/unsort.
-            from kmer_denovo_filter_tpu.ops import pallas_join as pj
-            th, tl = index.small_mixed()
-            u_chunk = getattr(index, "_small_member_u",
-                              pj.U_CHUNK_DD)
-            while True:
-                found, ovf_u = pj.small_member_step_dedup(
-                    th, tl, codes_j, lens_j, index.k, u_chunk,
-                    index.small_chunk, interpret=_pallas_interpret())
-                if not bool(ovf_u):
-                    index._small_member_u = u_chunk
-                    found = np.asarray(found)
-                    return found[:codes.shape[0],
-                                 :codes.shape[1] - index.k + 1]
-                if u_chunk * 2 > pj.LCHUNK_DD // 2:
-                    # stream doesn't dedup — plain sweep from now on
-                    index._small_member_dedup_ok = False
-                    break
-                u_chunk *= 2
-        found = np.asarray(dev.small_scan_hits_step(
-            index.table, codes_j, lens_j, index.k, index.w,
-            index.small_chunk))
-        return found[:codes.shape[0], :codes.shape[1] - index.k + 1]
-    if index.w == 2 and _use_pallas_join():
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        t0, t1, _perm, p = index.tile_partitions()
-        if (os.environ.get("KDF_DEDUP_JOIN") != "0"
-                and getattr(index, "_member_dedup_ok", True)):
-            # dedup-first member scan: join once per distinct
-            # chunk-local key, expand bits back (ladder as the
-            # tally's).  The ladder's settled capacities — and a
-            # terminal give-up — are cached on the index so an
-            # undedupable stream pays the failed attempts only once.
-            w_part, u_chunk = getattr(
-                index, "_member_dedup_cfg",
-                (pj.W_PART_MEMBER_DD, pj.U_CHUNK_DD))
-            while True:
-                found, ovf_s, ovf_u = pj.join_member_step_dedup(
-                    t0, t1, codes_j, lens_j, index.k, p, w_part,
-                    u_chunk, interpret=_pallas_interpret())
-                if not bool(ovf_s) and not bool(ovf_u):
-                    index._member_dedup_cfg = (w_part, u_chunk)
-                    found = np.asarray(found)
-                    return found[:codes.shape[0],
-                                 :codes.shape[1] - index.k + 1]
-                if bool(ovf_u):
-                    if u_chunk * 2 > pj.LCHUNK_DD // 2:
-                        # stream doesn't dedup — plain scan, and skip
-                        # the dedup ladder for this index from now on
-                        index._member_dedup_ok = False
-                        break
-                    u_chunk *= 2
-                if bool(ovf_s):
-                    if w_part >= pj.MAX_W_PART:
-                        # span overflow is batch-shaped, not
-                        # stream-shaped: fall back for this batch only
-                        break
-                    w_part = min(w_part * 2, pj.MAX_W_PART)
-        w_part = pj.W_PART
-        found, overflow = pj.join_member_step(
-            t0, t1, codes_j, lens_j, index.k, p, w_part,
-            interpret=_pallas_interpret())
-        while bool(overflow) and w_part < pj.MAX_W_PART:
-            w_part = min(w_part * 2, pj.MAX_W_PART)
-            found, overflow = pj.join_member_step(
-                t0, t1, codes_j, lens_j, index.k, p, w_part,
-                interpret=_pallas_interpret())
-        if not bool(overflow):
-            found = np.asarray(found)
-            return found[:codes.shape[0],
-                         :codes.shape[1] - index.k + 1]
-        # fall through to the XLA paths at maximum window
-    if _use_pallas_join() and 3 <= index.w:
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        if index.w <= pj.MAX_W_WIDE:
-            planes, _perm, p = index.tile_partitions_wide()
-            w_cap = pj.max_wide_w_part_member(index.w)
-            w_part = min(pj.W_PART, w_cap)
-            found, overflow = pj.join_member_step_wide(
-                planes, codes_j, lens_j, index.k, p, w_part,
-                interpret=_pallas_interpret())
-            while bool(overflow) and w_part < w_cap:
-                w_part = min(w_part * 2, w_cap)
-                found, overflow = pj.join_member_step_wide(
-                    planes, codes_j, lens_j, index.k, p, w_part,
-                    interpret=_pallas_interpret())
-            if not bool(overflow):
-                found = np.asarray(found)
-                return found[:codes.shape[0],
-                             :codes.shape[1] - index.k + 1]
-            # fall through to the XLA paths at maximum window
-    if index.mid:
-        tblocks, _perm, p_bits = index.hash_partitions()
-        cap_q = 1 << max(4, (2 * n_windows >> p_bits).bit_length())
-        found, overflow = dev.partitioned_scan_hits_step(
-            tblocks, codes_j, lens_j, index.k, index.w, p_bits, cap_q)
-        while bool(overflow):
-            cap_q *= 2
-            found, overflow = dev.partitioned_scan_hits_step(
-                tblocks, codes_j, lens_j, index.k, index.w, p_bits,
-                cap_q)
-        found = np.asarray(found)
-        return found[:codes.shape[0], :codes.shape[1] - index.k + 1]
     found, overflow = dev.scan_hits_step_bucketed(
-        index.table, index.off, codes_j, lens_j, index.k, index.w, cap,
-        index.p_bits, index.rounds)
+        index.table, index.off, codes_j, lens_j, index.k, index.w,
+        _dedup_cap(n_windows), index.p_bits, index.rounds)
     if bool(overflow):
         found, overflow = dev.scan_hits_step_bucketed(
             index.table, index.off, codes_j, lens_j, index.k, index.w,
@@ -1201,8 +494,8 @@ def scan_reads_for_hits(index, codes, lengths):
 class HostFilteredCounter:
     """``--if`` filtered counter over a host-resident table (W ≤ 2).
 
-    The single-chip path for filter tables beyond the per-chip HBM
-    budget (whole-genome child candidate sets): the device extracts
+    The single-device path for filter tables beyond the device
+    memory budget (whole-genome child candidate sets): the device extracts
     and canonicalises windows — the vectorisable part — and the
     multithreaded C++ hash answers the random-access tally at host
     memory speed (the role the mmap'd jellyfish index plays in the
@@ -1239,121 +532,9 @@ class HostFilteredCounter:
         return self._tally.copy()
 
 
-def scan_reads_for_hits_many(index, batches):
-    """Anchoring scan of a GROUP of read batches in one device pass.
-
-    *batches* is a list of ``(codes, lengths)`` numpy pairs.  When the
-    group is eligible (W == 2 Pallas table, dedup enabled, equal row
-    counts), the batches join as ONE super-batch member scan
-    (pallas_join.join_member_superbatch_dedup) — amortising the join
-    kernel's whole-table term exactly like the tally's super-batch
-    path.  Any ineligible group falls back to per-batch
-    :func:`scan_reads_for_hits` (identical results either way).
-
-    Returns a list of (B_i, S_i) bool hit masks, one per input batch.
-    """
-    from kmer_denovo_filter_tpu.ops import pallas_join as pj
-
-    def fallback():
-        return [scan_reads_for_hits(index, c, l) for c, l in batches]
-
-    try:
-        group_n = max(1, int(os.environ.get(
-            "KDF_SB_JOIN", str(pj.NB_JOIN_MEMBER))))
-    except ValueError:
-        group_n = pj.NB_JOIN_MEMBER
-    # partial groups (stream tails, shape changes) replay per batch:
-    # every distinct NB would otherwise compile its own super-batch
-    # graph
-    if (len(batches) != group_n or group_n <= 1
-            or index.w != 2 or not _use_pallas_join()
-            or os.environ.get("KDF_DEDUP_JOIN") == "0"
-            or not getattr(index, "_member_dedup_ok", True)
-            or (index.small
-                and (os.environ.get("KDF_SMALL_DEDUP") == "0"
-                     or not getattr(index, "_small_member_dedup_ok",
-                                    True)))):
-        return fallback()
-    padded = [pad_read_batch(c, l) for c, l in batches]
-    if len({cp.shape[0] for cp, _ in padded}) != 1:
-        return fallback()
-    lmax = max(cp.shape[1] for cp, _ in padded)
-    if lmax < index.k:
-        return fallback()
-    codes_nb = jnp.asarray(np.stack([
-        np.pad(cp, ((0, 0), (0, lmax - cp.shape[1])),
-               constant_values=4)
-        for cp, _ in padded]))
-    lens_nb = jnp.asarray(np.stack([lp for _, lp in padded]))
-    if index.small:
-        # grouped dedup-first small sweep: one dispatch per group,
-        # order-free all-pairs member over each compacted stream
-        th, tl = index.small_mixed()
-        u_chunk = getattr(index, "_small_member_u", pj.U_CHUNK_DD)
-        while True:
-            found_nb, ovf_u = pj.small_member_steps_dedup(
-                th, tl, codes_nb, lens_nb, index.k, u_chunk,
-                index.small_chunk, interpret=_pallas_interpret())
-            if not bool(ovf_u):
-                index._small_member_u = u_chunk
-                found_nb = np.asarray(found_nb)
-                return [found_nb[i][:c.shape[0],
-                                    :c.shape[1] - index.k + 1]
-                        for i, (c, _l) in enumerate(batches)]
-            if u_chunk * 2 > pj.LCHUNK_DD // 2:
-                index._small_member_dedup_ok = False
-                return fallback()
-            u_chunk *= 2
-    t0, t1, _perm, p = index.tile_partitions()
-    w_part, u_chunk = getattr(
-        index, "_member_sb_cfg",
-        (pj.W_PART_SB_MEMBER, pj.U_CHUNK_DD))
-    while True:
-        found_nb, ovf_s, ovf_u = pj.join_member_superbatch_dedup(
-            t0, t1, codes_nb, lens_nb, index.k, p, w_part, u_chunk,
-            interpret=_pallas_interpret())
-        if not bool(ovf_s) and not bool(ovf_u):
-            index._member_sb_cfg = (w_part, u_chunk)
-            break
-        if bool(ovf_u):
-            if u_chunk * 2 > pj.LCHUNK_DD // 2:
-                index._member_dedup_ok = False
-                return fallback()
-            u_chunk *= 2
-        if bool(ovf_s):
-            if w_part >= 256:  # VMEM cap: 4 window blocks ×2 buffers
-                return fallback()
-            w_part = min(w_part * 2, 256)
-    found_nb = np.asarray(found_nb)
-    out = []
-    for i, (c, _l) in enumerate(batches):
-        out.append(found_nb[i][:c.shape[0],
-                               :c.shape[1] - index.k + 1])
-    return out
-
-
-def make_scanner_many(index):
-    """Group-scan callable: list of (codes, lengths) → list of hit
-    masks, via the super-batch member join when eligible (see
-    :func:`scan_reads_for_hits_many`); sharded indexes scan per batch
-    through the mesh path."""
-    if _shard_dispatch(index):
-        scan = make_scanner(index)
-
-        def scan_many(batches):
-            return [scan(c, l) for c, l in batches]
-
-        return scan_many
-
-    def scan_many(batches):
-        return scan_reads_for_hits_many(index, batches)
-
-    return scan_many
-
-
 # Tables above this key count auto-shard on multi-device meshes (the
 # per-shard table then amortises the all-to-all; tiny tables are
-# faster replicated on one chip).
+# faster replicated on one device).
 _SHARD_AUTO_N = 1 << 20
 
 
@@ -1368,7 +549,7 @@ def _shard_dispatch(index):
 
 
 def make_filtered_counter(index):
-    """Single-chip :class:`FilteredCounter`, or the multi-chip
+    """Single-device :class:`FilteredCounter`, or the multi-device
     :class:`~kmer_denovo_filter_tpu.parallel.ShardedFilteredCounter`.
 
     Sharding is automatic on multi-device meshes for tables above
@@ -1380,17 +561,6 @@ def make_filtered_counter(index):
             ShardedFilteredCounter,
             make_mesh,
         )
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        if ((index.w == 2 or 3 <= index.w <= pj.MAX_W_WIDE)
-                and _use_pallas_join()):
-            from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-                ShardedTileCounter,
-            )
-            logger.info("  sharded tile-join engine: %d-device mesh",
-                        len(jax.devices()))
-            return ShardedTileCounter(index.keys_np, index.k,
-                                      make_mesh(),
-                                      interpret=_pallas_interpret())
         logger.info("  sharded engine: %d-device mesh",
                     len(jax.devices()))
         return ShardedFilteredCounter(index.keys_np, index.k,
@@ -1399,42 +569,30 @@ def make_filtered_counter(index):
 
 
 def make_parent_filter_counter(keys_np, k):
-    """Filtered counter built straight from host keys, HBM-gated.
+    """Filtered counter built straight from host keys, memory-gated.
 
     The pipeline-facing factory for whole-genome parent filtering
     (discovery Module 2), where the filter table itself can exceed a
-    chip's HBM: multi-device meshes take the sharded tile/routed
-    counters (the table never materialises on one chip), over-budget
-    single-chip tables take :class:`HostFilteredCounter`, and
+    device's memory: multi-device meshes take the routed sharded
+    counter (the table never materialises on one device), over-budget
+    single-device tables take :class:`HostFilteredCounter`, and
     everything else builds the device :class:`KmerIndex` +
     :class:`FilteredCounter` as usual.
     """
     w = enc.words_per_kmer(k)
     n = keys_np.shape[0]
     mode = os.environ.get("KDF_SHARDED")
-    multi = (len(jax.devices()) >= 2 and mode != "0"
-             and (mode == "1" or n > _SHARD_AUTO_N))
-    if multi:
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
+    if (len(jax.devices()) >= 2 and mode != "0"
+            and (mode == "1" or n > _SHARD_AUTO_N)):
         from kmer_denovo_filter_tpu.parallel import (
             ShardedFilteredCounter,
             make_mesh,
         )
-        if ((w == 2 or 3 <= w <= pj.MAX_W_WIDE)
-                and _use_pallas_join()):
-            from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-                ShardedTileCounter,
-            )
-            logger.info("  sharded tile-join engine: %d-device mesh",
-                        len(jax.devices()))
-            return ShardedTileCounter(keys_np, k, make_mesh(),
-                                      interpret=_pallas_interpret())
         logger.info("  sharded engine: %d-device mesh",
                     len(jax.devices()))
         return ShardedFilteredCounter(keys_np, k, make_mesh())
-    padded_bytes = (1 << max(0, (n - 1).bit_length())) \
-        * keys_np.shape[1] * 4 if n else 0
-    if padded_bytes > _DEVICE_TABLE_MAX_BYTES and w == 2:
+    padded_bytes = _padded_table_bytes(keys_np)
+    if padded_bytes > device_table_budget() and w == 2:
         from kmer_denovo_filter_tpu.htsio import native
         if native.available():
             logger.info(
@@ -1446,28 +604,16 @@ def make_parent_filter_counter(keys_np, k):
 
 
 def make_scanner(index):
-    """Anchoring-scan callable for *index*: the single-chip
+    """Anchoring-scan callable for *index*: the single-device
     :func:`scan_reads_for_hits` or its sharded analog under the same
     dispatch rule as :func:`make_filtered_counter` (discovery
-    Module 3 on >1 chip)."""
+    Module 3 on >1 device)."""
     if _shard_dispatch(index):
         from kmer_denovo_filter_tpu.parallel import (
             ShardedKmerIndex,
             make_mesh,
             sharded_scan_reads_for_hits,
         )
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        if ((index.w == 2 or 3 <= index.w <= pj.MAX_W_WIDE)
-                and _use_pallas_join()):
-            from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-                ShardedTileScanner,
-            )
-            logger.info(
-                "  sharded tile-join anchoring scan: %d-device mesh",
-                len(jax.devices()))
-            return ShardedTileScanner(index.keys_np, index.k,
-                                      make_mesh(),
-                                      interpret=_pallas_interpret())
         logger.info("  sharded anchoring scan: %d-device mesh",
                     len(jax.devices()))
         sharded = ShardedKmerIndex(index.keys_np, index.k, make_mesh())

@@ -3,7 +3,7 @@
 The reference tool relies on pysam/htslib and the samtools binary for
 all alignment and variant I/O (e.g. reference core/bam_scanner.py:18,
 vcf/pipeline.py:13).  This package provides the equivalent
-functionality natively so the TPU build has no external binary
+functionality natively so the device build has no external binary
 dependencies on its hot path.  A C++ accelerator for BGZF inflation and
 BAM record parsing lives in ``_native/`` and is used transparently when
 it can be built; the pure-Python/numpy path is the always-available

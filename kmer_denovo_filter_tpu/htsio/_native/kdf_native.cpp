@@ -1,4 +1,4 @@
-// kdf_native — C++ host-side accelerator for the TPU k-mer engine.
+// kdf_native — C++ host-side accelerator for the device k-mer engine.
 //
 // Replaces the role the reference delegates to samtools/htslib
 // subprocesses (reference core/jellyfish_wrappers.py:158–199): BGZF
@@ -263,12 +263,10 @@ int64_t bam_extract_codes(const uint8_t* data,
 
 // ── Host-side k-mer hash table (probe/tally accelerator) ───────────
 //
-// The XLA per-element gather path on TPU runs at ~10ns/element, ~250×
-// below HBM random-access speed-of-light, which makes device-side
-// binary-search probes the pipeline bottleneck.  Random access is the
-// host CPU's strength, so the engine pairs device window extraction
-// with this multithreaded open-addressing table for membership/tally
-// queries.  Keys are the engine's packed canonical k-mers collapsed
+// Tables larger than one device's memory budget stay on the host.
+// Random access is the host CPU's strength, so for those the engine
+// pairs device window extraction with this multithreaded
+// open-addressing table for membership/tally queries.  Keys are the engine's packed canonical k-mers collapsed
 // to 64 bits (W<=2, i.e. k<=31); k>31 uses the device path.
 
 #include <atomic>

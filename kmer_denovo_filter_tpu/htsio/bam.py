@@ -11,7 +11,7 @@ core/jellyfish_wrappers.py:158–165) with a native implementation:
 * :class:`BamReader` — streaming iteration, region ``fetch`` via an
   in-memory per-contig interval index (no BAI required for reading),
   and :meth:`iter_packed` which yields 2-bit-packed numpy read batches
-  for the TPU k-mer engine without materialising sequence strings.
+  for the device k-mer engine without materialising sequence strings.
 * :class:`BamWriter` — coordinate-sort + BAI binning index writer
   (equivalent of ``pysam.sort`` + ``pysam.index``,
   reference vcf/pipeline.py:1355–1356).
@@ -550,7 +550,7 @@ class BamReader:
             if e > start:
                 yield rec
 
-    # ── packed fast path for the TPU engine ────────────────────────
+    # ── packed fast path for the device engine ─────────────────────
     def iter_packed(self, exclude_flags=0, batch_reads=8192, records=None):
         """Yield (codes, lengths) numpy batches of 2-bit read codes.
 

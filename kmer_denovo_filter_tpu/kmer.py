@@ -1,6 +1,6 @@
 """Host-side k-mer semantics (exact-parity oracle for the device engine).
 
-These pure functions define the bit-exact semantics the TPU engine must
+These pure functions define the bit-exact semantics the device engine must
 reproduce: canonicalization, sliding-window extraction with N
 filtering, variant-spanning extraction with the base-quality window,
 and the strict alt-allele support check.  They mirror the behaviour of

@@ -1,6 +1,6 @@
 """Memory / disk / subprocess observability (reference core/memory_utils.py).
 
-Adds a device-memory probe for the TPU engine on top of the
+Adds a device-memory probe for the device engine on top of the
 /proc-based host metrics the reference logs at module boundaries.
 """
 
@@ -130,7 +130,7 @@ def log_children_memory(label=""):
 
 
 def log_device_memory(label=""):
-    """Log per-device HBM stats when the backend exposes them (TPU)."""
+    """Log per-device memory stats when the backend exposes them."""
     try:
         import jax
         for d in jax.local_devices():

@@ -7,8 +7,4 @@ from kmer_denovo_filter_tpu.parallel.sharded import (  # noqa: F401
     sharded_count,
     sharded_scan_reads_for_hits,
 )
-from kmer_denovo_filter_tpu.parallel.tile_sharded import (  # noqa: F401
-    ShardedTileCounter,
-    ShardedTileScanner,
-)
 from kmer_denovo_filter_tpu.parallel import multihost  # noqa: F401

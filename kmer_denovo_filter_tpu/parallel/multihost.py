@@ -1,19 +1,21 @@
 """Multi-host scaffolding: ``jax.distributed`` + per-host input feeds.
 
 Scales the sharded k-mer engine past one host (BASELINE.md's 2-host
-target; SURVEY.md §2.3's DCN dimension): every process contributes its
+target; SURVEY.md §2.3's cross-host dimension): every process contributes its
 local devices to one global mesh, reads stream in per-host shards
 (each host decodes its own BAM slice — the multi-host analog of the
 reference's per-contig process pool, reference
 discovery/pipeline.py:734–792), and the hash-owner all-to-all of the
-sharded engine rides ICI within a host and DCN across hosts, scheduled
-by XLA from the same ``shard_map`` programs used single-host.
+sharded engine rides the device interconnect within a host and the
+network across hosts, scheduled by XLA from the same ``shard_map``
+programs used single-host.  On a GPU host run one process per card
+(``KDF_LOCAL_DEVICE_IDS``).
 
 Deployment contract:
 
 * every process calls :func:`initialize` first (coordinator address
   via arguments or ``KDF_COORDINATOR`` / ``KDF_NUM_PROCESSES`` /
-  ``KDF_PROCESS_ID`` env vars);
+  ``KDF_PROCESS_ID`` / ``KDF_LOCAL_DEVICE_IDS`` env vars);
 * batches are *process-local*: each host feeds the reads it decoded;
   batch shapes must match across processes for a given step (pad the
   tail batch);
@@ -24,16 +26,15 @@ tests/test_multihost.py.
 """
 
 import logging
-import os
 
 import numpy as np
 import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh
 
 from kmer_denovo_filter_tpu.ops import encode as enc
-from kmer_denovo_filter_tpu.parallel.sharded import (
+from kmer_denovo_filter_tpu.parallel.sharded import (  # noqa: F401
     AXIS,
+    distribute_read_batch,
     make_count_program,
 )
 
@@ -41,35 +42,33 @@ logger = logging.getLogger(__name__)
 
 
 def initialize(coordinator_address=None, num_processes=None,
-               process_id=None):
+               process_id=None, local_device_ids=None):
     """Join the distributed runtime (idempotent).
 
-    Arguments fall back to ``KDF_COORDINATOR`` / ``KDF_NUM_PROCESSES``
-    / ``KDF_PROCESS_ID``; with none set this is a no-op so single-host
-    runs need no configuration.
+    Arguments fall back to the ``KDF_*`` deployment environment
+    (:func:`~kmer_denovo_filter_tpu.runtime.distributed_config`); with
+    no coordinator this is a no-op so single-host runs need no
+    configuration.
     """
-    coordinator_address = coordinator_address or os.environ.get(
-        "KDF_COORDINATOR")
+    from kmer_denovo_filter_tpu import runtime
+
+    cfg = runtime.distributed_config() or {}
+    coordinator_address = coordinator_address or cfg.get(
+        "coordinator_address")
     if coordinator_address is None:
         return False
-    from jax._src import distributed as _dist
-    if getattr(_dist.global_state, "client", None) is not None:
+    if jax.distributed.is_initialized():
         return True  # already joined (e.g. by the entry script)
     if num_processes is None:
-        num_processes = int(os.environ["KDF_NUM_PROCESSES"])
+        num_processes = cfg["num_processes"]
     if process_id is None:
-        process_id = int(os.environ["KDF_PROCESS_ID"])
-    try:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes, process_id=process_id)
-    except RuntimeError as e:
-        # already joined (callers must initialize before any JAX call
-        # touches the backend — importing this package is enough to
-        # do that, so entry points init first and this becomes a
-        # no-op); anything else is a real failure
-        if "already initialized" not in str(e):
-            raise
+        process_id = cfg["process_id"]
+    if local_device_ids is None:
+        local_device_ids = cfg.get("local_device_ids")
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes, process_id=process_id,
+        local_device_ids=local_device_ids)
     logger.info("distributed runtime: process %d/%d, %d local / %d "
                 "global devices", process_id, num_processes,
                 jax.local_device_count(), jax.device_count())
@@ -82,8 +81,7 @@ def active():
     Requires :func:`initialize` (or ``jax.distributed.initialize``) to
     have been called; single-process runs always return False.
     """
-    from jax._src import distributed as _dist
-    if getattr(_dist.global_state, "client", None) is None:
+    if not jax.distributed.is_initialized():
         return False
     return jax.process_count() > 1
 
@@ -166,16 +164,33 @@ def merge_counts(keys, counts):
 LAST_MERGE_STATS = {}
 
 
+def _fmix32(x):
+    """murmur3's 32-bit finaliser (numpy, uint32 in and out)."""
+    x = x.astype(np.uint32, copy=True)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def route_hash(words):
+    """Uniform uint32 hash of each (N, W) uint32 key row."""
+    h = np.zeros(words.shape[0], dtype=np.uint32)
+    for j in range(words.shape[1]):
+        h = _fmix32(h ^ words[:, j])
+    return h
+
+
 def _owner_of_keys(keys, n):
     """Stable uniform owner process for each (N, W) uint32 key row.
 
-    Fixed-point scale of the fmix32 chain over the key words — the
-    same hash family as the tile-join route, so ownership is identical
-    on every host and independent of input order.
+    Fixed-point scale of the fmix32 chain over the key words, so
+    ownership is identical on every host and independent of input
+    order.
     """
-    from kmer_denovo_filter_tpu.ops import pallas_join as pj
-
-    h = pj.route_hash_np(np.ascontiguousarray(keys, np.uint32))
+    h = route_hash(np.ascontiguousarray(keys, np.uint32))
     return ((h.astype(np.uint64) * np.uint64(n))
             >> np.uint64(32)).astype(np.int64)
 
@@ -283,28 +298,6 @@ def global_mesh():
     return Mesh(np.array(jax.devices()), (AXIS,))
 
 
-def distribute_read_batch(codes, lengths, mesh):
-    """Build globally-sharded read arrays from this host's batch.
-
-    ``codes``/``lengths`` are process-local; every process must pass
-    the same shapes.  Rows pad to a multiple of the *local* device
-    count so the global array splits evenly.
-    """
-    n_local = jax.local_device_count()
-    b, length = codes.shape
-    per = -(-b // n_local)
-    pad_b = per * n_local
-    codes_p = np.full((pad_b, length), 4, dtype=np.uint8)
-    codes_p[:b] = codes
-    lens_p = np.zeros(pad_b, dtype=np.int32)
-    lens_p[:b] = lengths
-    codes_g = jax.make_array_from_process_local_data(
-        NamedSharding(mesh, P(AXIS, None)), codes_p)
-    lens_g = jax.make_array_from_process_local_data(
-        NamedSharding(mesh, P(AXIS)), lens_p)
-    return codes_g, lens_g
-
-
 def sharded_count_multihost(codes, lengths, k, mesh=None,
                             cap_per_shard=None, per_process=False):
     """Distributed canonical k-mer count with per-host input feeds.
@@ -343,7 +336,7 @@ def sharded_count_multihost(codes, lengths, k, mesh=None,
         cap_per_shard *= 2
 
     if per_process:
-        # local-shard extraction only — no table ever crosses DCN
+        # local-shard extraction only — no table ever crosses hosts
         out_keys = []
         out_counts = []
         for sh_k, sh_s, sh_c in zip(skeys.addressable_shards,

@@ -9,13 +9,14 @@ devices by a *hash prefix* of the key, so
   cross-device merge of duplicate keys (the reference's jellyfish
   chunk-merge step disappears by construction);
 * membership probes route each query key to its owner via a single
-  ``all_to_all`` over ICI, answer with a local binary search, and
-  return with the inverse ``all_to_all``;
+  ``all_to_all``, answer with a local binary search, and return with
+  the inverse ``all_to_all``;
 * filtered-count tallies (the ``--if`` analog) accumulate on the owner
   shard with no result-return traffic at all.
 
-Everything is expressed with ``shard_map`` + ``jax.lax`` collectives so
-XLA schedules the exchanges onto ICI links.  Query routing uses
+Everything is expressed with ``shard_map`` + ``jax.lax`` collectives, so
+XLA schedules the exchanges onto the device interconnect (NCCL over
+NVLink on a GPU host).  Query routing uses
 fixed-capacity buckets (static shapes) with overflow detection and
 host-side retry at doubled capacity — the compile-friendly equivalent
 of a dynamic shuffle.
@@ -46,6 +47,84 @@ def make_mesh(n_devices=None):
     if n_devices is not None:
         devices = devices[:n_devices]
     return Mesh(np.array(devices), (AXIS,))
+
+
+# ── single- and multi-process placement ─────────────────────────────
+# On a mesh that spans processes every host holds the table in full,
+# feeds its OWN read batch (the per-host BAM-slice input model of
+# parallel/multihost.py; shapes must match across hosts), and reads
+# flags and results back through ``process_allgather``.
+
+def _multiprocess():
+    return jax.process_count() > 1
+
+
+def _put_global(arr_np, sharding):
+    """Place a host array that every process holds in full."""
+    if not _multiprocess():
+        return jax.device_put(jnp.asarray(arr_np), sharding)
+    return jax.make_array_from_callback(
+        arr_np.shape, sharding, lambda idx: arr_np[idx])
+
+
+def _to_host(x):
+    """Fetch a (possibly non-addressable) global array to every host."""
+    if not _multiprocess():
+        return np.asarray(x)
+    from jax.experimental import multihost_utils
+    return np.asarray(multihost_utils.process_allgather(x, tiled=True))
+
+
+def distribute_read_batch(codes, lengths, mesh):
+    """Build globally-sharded read arrays from this host's batch.
+
+    ``codes``/``lengths`` are process-local; every process must pass
+    the same shapes.  Rows pad to a multiple of the *local* device
+    count so the global array splits evenly.
+    """
+    n_local = jax.local_device_count()
+    b, length = codes.shape
+    per = -(-b // n_local)
+    pad_b = per * n_local
+    codes_p = np.full((pad_b, length), 4, dtype=np.uint8)
+    codes_p[:b] = codes
+    lens_p = np.zeros(pad_b, dtype=np.int32)
+    lens_p[:b] = lengths
+    codes_g = jax.make_array_from_process_local_data(
+        NamedSharding(mesh, P(AXIS, None)), codes_p)
+    lens_g = jax.make_array_from_process_local_data(
+        NamedSharding(mesh, P(AXIS)), lens_p)
+    return codes_g, lens_g
+
+
+def _stage_reads(codes, lengths, mesh):
+    """This process's read batch → mesh-sharded ``(codes, lens)`` and
+    the read rows each shard holds."""
+    n_shards = int(mesh.devices.size)
+    if _multiprocess():
+        codes_d, lens_d = distribute_read_batch(codes, lengths, mesh)
+        return codes_d, lens_d, codes_d.shape[0] // n_shards
+    b, length = codes.shape
+    per = -(-b // n_shards)
+    pad_b = per * n_shards
+    codes_p = np.full((pad_b, length), 4, dtype=np.uint8)
+    codes_p[:b] = codes
+    lens_p = np.zeros(pad_b, dtype=np.int32)
+    lens_p[:b] = lengths
+    codes_d = jax.device_put(
+        jnp.asarray(codes_p), NamedSharding(mesh, P(AXIS, None)))
+    lens_d = jax.device_put(
+        jnp.asarray(lens_p), NamedSharding(mesh, P(AXIS)))
+    return codes_d, lens_d, per
+
+
+def _local_rows(x, b):
+    """This process's first *b* rows of a row-sharded global array."""
+    if not _multiprocess():
+        return np.asarray(x)[:b]
+    shards = sorted(x.addressable_shards,
+                    key=lambda sh: sh.index[0].start)
+    return np.concatenate([np.asarray(sh.data) for sh in shards])[:b]
 
 
 def hash_owner(keys, n_shards):
@@ -82,12 +161,25 @@ def _bucketize(keys, n_shards, cap, w):
             jnp.where(valid, flat_idx, -1), overflow)
 
 
+def _hit_rows(q, idx, found, m_cap, w):
+    """Owner-shard tally rows of routed queries: hits only.  Misses and
+    the route buckets' sentinel padding (which "finds" the shard's
+    sentinel rows) point past the shard for a ``mode="drop"`` scatter;
+    sent to one row instead, they serialise the scatter on the GPU."""
+    sent = jnp.ones(q.shape[0], dtype=bool)
+    for j in range(w):
+        sent = sent & (q[:, j] == jnp.uint32(0xFFFFFFFF))
+    return jnp.where(found & ~sent, idx, m_cap)
+
+
+@functools.lru_cache(maxsize=32)
 def make_count_program(mesh, n_shards, k, w, cap):
     """shard_map program: distributed canonical count of a read batch.
 
     Shared by the single-host :func:`sharded_count` and the
     multi-host :func:`~kmer_denovo_filter_tpu.parallel.multihost.
     sharded_count_multihost` — one definition, both deployments.
+    Cached per (mesh, shape) so every batch reuses one compilation.
     """
 
     @jax.jit
@@ -148,10 +240,9 @@ class ShardedKmerIndex:
             stacked[d, :s.shape[0]] = s
         self._table_sharding = NamedSharding(mesh, P(AXIS, None, None))
         self._acc_sharding = NamedSharding(mesh, P(AXIS, None))
-        self.table = jax.device_put(jnp.asarray(stacked),
-                                    self._table_sharding)
-        self._tally = jax.device_put(
-            jnp.zeros((self.n_shards, self.m_cap), dtype=jnp.int32),
+        self.table = _put_global(stacked, self._table_sharding)
+        self._tally = _put_global(
+            np.zeros((self.n_shards, self.m_cap), dtype=np.int32),
             self._acc_sharding)
         self._probe_cache = {}
         self._tally_cache = {}
@@ -212,8 +303,8 @@ class ShardedKmerIndex:
                 buckets, AXIS, split_axis=0, concat_axis=0)
             q = routed.reshape(n_shards * cap, w)
             idx, found = dev.lookup_sorted(table, q, w)
-            idx = jnp.clip(idx, 0, m_cap - 1)
-            acc = acc_shard.at[0, idx].add(found.astype(jnp.int32))
+            acc = acc_shard.at[0, _hit_rows(q, idx, found, m_cap, w)].add(
+                1, mode="drop")
             return acc, overflow[None]
 
         self._tally_cache[cap] = tally
@@ -228,8 +319,8 @@ class ShardedKmerIndex:
         padded = np.full((self.n_shards * per, self.w), _SENTINEL32,
                          dtype=np.uint32)
         padded[:n] = query_keys_np
-        arr = jnp.asarray(padded.reshape(self.n_shards, per, self.w))
-        return jax.device_put(arr, self._table_sharding), per
+        return _put_global(padded.reshape(self.n_shards, per, self.w),
+                           self._table_sharding), per
 
     def membership(self, query_keys_np, slack=4.0):
         """Routed membership probe returning per-query bool."""
@@ -240,9 +331,9 @@ class ShardedKmerIndex:
             np.ascontiguousarray(query_keys_np, np.uint32))
         cap = max(16, int(np.ceil(per / self.n_shards * slack)))
         found, overflow = self._probe_fn(cap)(self.table, queries)
-        if bool(np.asarray(overflow).any()):
+        if bool(_to_host(overflow).any()):
             return self.membership(query_keys_np, slack * 2)
-        out = np.asarray(found).reshape(-1)[:n]
+        out = _to_host(found).reshape(-1)[:n]
         sent = (query_keys_np == _SENTINEL32).all(axis=1)
         out = np.array(out)
         out[sent] = False
@@ -257,14 +348,15 @@ class ShardedKmerIndex:
         cap = max(16, int(np.ceil(per / self.n_shards * slack)))
         acc, overflow = self._tally_fn(cap)(
             self.table, self._tally, queries)
-        if bool(np.asarray(overflow).any()):
+        if bool(_to_host(overflow).any()):
             self.tally_batch(flat_keys_np, slack * 2)
             return
         self._tally = acc
 
     def tally_result(self):
-        """Per-global-key tally gathered back to the host key order."""
-        acc = np.asarray(self._tally)
+        """Per-global-key tally gathered back to the host key order
+        (identical on every host of a multi-process mesh)."""
+        acc = _to_host(self._tally)
         out = np.zeros(self.n, dtype=np.int64)
         for d in range(self.n_shards):
             rows = self.global_index_of[d]
@@ -312,28 +404,12 @@ class ShardedFilteredCounter:
                 buckets, AXIS, split_axis=0, concat_axis=0)
             q = routed.reshape(n_shards * cap, w)
             i, found = dev_ops.lookup_sorted(table_shard[0], q, w)
-            i = jnp.clip(i, 0, m_cap - 1)
-            acc = acc_shard.at[0, i].add(found.astype(jnp.int32))
+            acc = acc_shard.at[0, _hit_rows(q, i, found, m_cap, w)].add(
+                1, mode="drop")
             return acc, ovf[None]
 
         self._step_cache[cap] = step
         return step
-
-    def _shard_reads(self, codes, lengths):
-        idx = self.index
-        b = codes.shape[0]
-        per = -(-b // idx.n_shards)
-        pad_b = per * idx.n_shards
-        codes_p = np.full((pad_b, codes.shape[1]), 4, dtype=np.uint8)
-        codes_p[:b] = codes
-        lens_p = np.zeros(pad_b, dtype=np.int32)
-        lens_p[:b] = lengths
-        codes_d = jax.device_put(
-            jnp.asarray(codes_p), NamedSharding(idx.mesh, P(AXIS, None)))
-        lens_d = jax.device_put(
-            jnp.asarray(lens_p), NamedSharding(idx.mesh, P(AXIS)))
-        s = codes.shape[1] - self.k + 1
-        return codes_d, lens_d, per, s
 
     def _resolve_pending(self):
         """Settle the previous batch's route-overflow flag.
@@ -347,20 +423,23 @@ class ShardedFilteredCounter:
             return
         codes_d, lens_d, tally_before, overflow, cap = self._pending
         self._pending = None
-        if not bool(np.asarray(overflow).any()):
+        if not bool(_to_host(overflow).any()):
             return
         idx = self.index
         while True:
             cap *= 2
             acc, overflow = self._step_fn(cap)(
                 idx.table, tally_before, codes_d, lens_d)
-            if not bool(np.asarray(overflow).any()):
+            if not bool(_to_host(overflow).any()):
                 break
         idx._tally = acc
 
     def feed(self, codes, lengths, slack=4.0):
+        """Tally one batch: on a multi-process mesh, this host's own
+        reads (shapes must match across hosts)."""
         idx = self.index
-        codes_d, lens_d, per, s = self._shard_reads(codes, lengths)
+        codes_d, lens_d, per = _stage_reads(codes, lengths, idx.mesh)
+        s = codes.shape[1] - self.k + 1
         cap = max(16, int(per * s / idx.n_shards * slack))
         self._resolve_pending()
         tally_before = idx._tally
@@ -380,7 +459,9 @@ def sharded_scan_reads_for_hits(counter_or_index, codes, lengths,
     analog): reads data-parallel, keys routed to owner shards, and
     verdicts routed back — one shard_map program per batch.
 
-    Returns (B, S) bool numpy, identical to the single-device scan.
+    Returns (B, S) bool numpy, identical to the single-device scan;
+    on a multi-process mesh *codes* is this host's own batch (shapes
+    must match across hosts) and the mask covers exactly its reads.
     """
     index = getattr(counter_or_index, "index", counter_or_index)
     from kmer_denovo_filter_tpu.ops import device as dev_ops
@@ -388,19 +469,15 @@ def sharded_scan_reads_for_hits(counter_or_index, codes, lengths,
     k, w, n_shards, mesh = index.k, index.w, index.n_shards, index.mesh
     b, length = codes.shape
     s = length - k + 1
-    per = -(-b // n_shards)
-    pad_b = per * n_shards
-    codes_p = np.full((pad_b, length), 4, dtype=np.uint8)
-    codes_p[:b] = codes
-    lens_p = np.zeros(pad_b, dtype=np.int32)
-    lens_p[:b] = lengths
-    codes_d = jax.device_put(
-        jnp.asarray(codes_p), NamedSharding(mesh, P(AXIS, None)))
-    lens_d = jax.device_put(
-        jnp.asarray(lens_p), NamedSharding(mesh, P(AXIS)))
+    codes_d, lens_d, per = _stage_reads(codes, lengths, mesh)
     cap = max(16, int(per * s / n_shards * slack))
 
     def make(cap):
+        # one compiled program per (capacity, read length) per index
+        key = ("scan", cap, s)
+        if key in index._probe_cache:
+            return index._probe_cache[key]
+
         @jax.jit
         @functools.partial(
             shard_map, mesh=mesh,
@@ -426,13 +503,14 @@ def sharded_scan_reads_for_hits(counter_or_index, codes, lengths,
             return (hit.reshape(codes_shard.shape[0], s) & valid,
                     ovf[None])
 
+        index._probe_cache[key] = scan
         return scan
 
     found, overflow = make(cap)(index.table, codes_d, lens_d)
-    while bool(np.asarray(overflow).any()):
+    while bool(_to_host(overflow).any()):
         cap *= 2
         found, overflow = make(cap)(index.table, codes_d, lens_d)
-    return np.asarray(found)[:b]
+    return _local_rows(found, b)
 
 
 def sharded_count(codes, lengths, k, mesh, cap_per_shard=None):

@@ -1,10 +1,10 @@
 """VCF-mode pipeline: annotate candidate variants with k-mer evidence.
 
-TPU-native re-design of reference vcf/pipeline.py (1978 LoC).  Same
+Device-native re-design of reference vcf/pipeline.py (1978 LoC).  Same
 five-step contract and byte-identical outputs, but the parent
 whole-BAM scans (the reference's dominant wall-clock cost, delegated
 to ``samtools fasta | jellyfish count --if`` subprocesses at reference
-core/jellyfish_wrappers.py:115–283) run on the TPU k-mer engine:
+core/jellyfish_wrappers.py:115–283) run on the device k-mer engine:
 packed read batches → canonical window extraction → binary-search
 probe against the child k-mer table → device tally.
 """
@@ -193,7 +193,7 @@ def _make_filtered_counter(index):
 
 def _scan_parent_device(parent_bam_path, child_index, label,
                         stripe=None):
-    """Step 3: filtered parent count on the TPU engine.
+    """Step 3: filtered parent count on the device engine.
 
     Streams all primary, non-duplicate, non-supplementary parent reads
     (flag filter 0xD00, matching ``samtools fasta -F 0xD00`` at

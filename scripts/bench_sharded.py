@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
 """Sharded-scaling analysis on a virtual device mesh.
 
-Real multi-chip hardware is not present in this environment, so this
-script validates the *structure* of the multi-chip design (the
-BASELINE scaling-efficiency metric's prerequisites) on an N-device
-virtual CPU mesh:
+Validates the *structure* of the multi-device design (the BASELINE
+scaling-efficiency metric's prerequisites) on an N-device virtual CPU
+mesh, with no accelerator:
 
 * per-shard key balance of the hash-prefix table partitioning
   (imbalance -> stragglers -> lost scaling efficiency),
 * per-shard query routing balance of a coverage-skewed batch,
-* the all-to-all routed byte volume per batch (the ICI traffic term),
+* the all-to-all routed byte volume per batch (the interconnect term),
 * agreement of sharded membership/tally with the single-device engine.
 
 Usage:
@@ -19,7 +18,7 @@ Usage:
 The scaling model this validates (PERF.md): per-chip work is
 N_windows/S sort+sweep plus one all-to-all of ~8 bytes/window; with
 balanced shards the efficiency loss is the all-to-all time fraction,
-which rides ICI (O(100 GB/s/link)) and is <5% for WGS batch sizes.
+which rides the device interconnect (NVLink on a GPU host).
 """
 
 import json

@@ -795,8 +795,7 @@ class TestScanPathParity:
     def test_host_parent_filter_identical(self, disco, tmp_path,
                                           monkeypatch):
         """Forcing the host C++ filtered counter for Module 2 (the
-        over-HBM-budget single-chip path) keeps outputs identical."""
-        from kmer_denovo_filter_tpu import engine as eng
+        over-budget single-device path) keeps outputs identical."""
         from kmer_denovo_filter_tpu.htsio import native
 
         if not native.available():
@@ -804,7 +803,7 @@ class TestScanPathParity:
             _pytest.skip("native library unavailable")
         p1 = _run(disco, tmp_path / "dev2")
         monkeypatch.setenv("KDF_SHARDED", "0")
-        monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES", 0)
+        monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", "0")
         p2 = _run(disco, tmp_path / "host2")
         for suffix in (".bed", ".kmer_coverage.bedgraph",
                        ".sv.bedpe", ".summary.txt"):

@@ -185,7 +185,7 @@ def test_sequence_counting_chunks():
 
 
 def test_filtered_counter_large_table_bucketed_path():
-    """Force the bucketed-probe path (table above the small threshold)."""
+    """A larger filter table through the bucketed-probe tally."""
     k = 31
     stream = random_reads(60, k, with_n=False, seed=51)
     filter_reads = stream[:10] + random_reads(160, k, with_n=False,
@@ -195,7 +195,6 @@ def test_filtered_counter_large_table_bucketed_path():
         cap, _ = K.extract_read_kmers(s, k)
         filter_set.update(cap.values())
     fidx = eng.KmerIndex.from_strings(filter_set, k)
-    fidx.small = False  # force the bucketed path regardless of size
     fc = eng.FilteredCounter(fidx)
     batch, lens = pack_reads(stream)
     fc.feed(batch, lens)
@@ -218,7 +217,6 @@ def test_scan_hits_large_table_bucketed_path():
         cap, _ = K.extract_read_kmers(s, k)
         target.update(cap.values())
     idx = eng.KmerIndex.from_strings(target, k)
-    idx.small = False  # force the bucketed path regardless of size
     batch, lens = pack_reads(reads)
     found = eng.scan_reads_for_hits(idx, batch, lens)
     for i, s in enumerate(reads):
@@ -227,119 +225,53 @@ def test_scan_hits_large_table_bucketed_path():
         assert set(np.nonzero(found[i])[0].tolist()) == expected, i
 
 
-def test_small_and_bucketed_paths_agree():
-    k = 15
-    reads = random_reads(30, k, seed=71)
-    kmers = sorted({c for s in reads
-                    for c in K.extract_read_kmers(s, k)[0].values()})
-    subset = kmers[:100]
-    small_idx = eng.KmerIndex.from_strings(subset, k)
-    assert small_idx.small
-    batch, lens = pack_reads(reads)
-    found_small = eng.scan_reads_for_hits(small_idx, batch, lens)
-    # force the bucketed path on the identical table
-    small_idx.small = False
-    found_bucketed = eng.scan_reads_for_hits(small_idx, batch, lens)
-    assert np.array_equal(found_small, found_bucketed)
-
-
-def test_filtered_counter_mid_table_partitioned_path():
-    """Force the hash-partitioned sweep (mid-size dispatch)."""
+@pytest.mark.parametrize("n_keys", [1, 2, 100, 1000, 5000])
+def test_filtered_counter_table_sizes(n_keys):
+    """Tables of any size pad to a power of two with sentinel rows;
+    the padding never counts and every real key tallies exactly."""
     k = 31
-    stream = random_reads(60, k, with_n=False, seed=91)
-    filter_reads = stream[:10] + random_reads(120, k, with_n=False,
-                                              seed=92)
-    filter_set = set()
-    for s in filter_reads:
-        cap, _ = K.extract_read_kmers(s, k)
-        filter_set.update(cap.values())
-    fidx = eng.KmerIndex.from_strings(filter_set, k)
-    fidx.small = False
-    fidx.mid = True
-    fc = eng.FilteredCounter(fidx)
+    stream = random_reads(50, k, with_n=True, seed=n_keys)
+    kmers = sorted({c for s in stream + random_reads(
+        60, k, with_n=False, seed=n_keys + 1)
+        for c in K.extract_read_kmers(s, k)[0].values()})
+    rng = random.Random(n_keys)
+    subset = sorted(rng.sample(kmers, min(n_keys, len(kmers))))
+    keys = enc.kmers_to_keys(subset, k)
+    index = eng.KmerIndex(keys, k)
+    assert index.m_pad >= len(subset)
+    fc = eng.FilteredCounter(index)
     batch, lens = pack_reads(stream)
-    fc.feed(batch[:30], lens[:30])
-    fc.feed(batch[30:], lens[30:])
-    res = fc.result()
-    oc = Counter()
-    for s in stream:
-        cap, _ = K.extract_read_kmers(s, k)
-        for c in cap.values():
-            if c in filter_set:
-                oc[c] += 1
-    got = {s: int(c) for s, c in zip(fidx.to_strings(), res) if c > 0}
-    assert got == dict(oc)
+    fc.feed(batch, lens)
+    assert np.array_equal(fc.result(), _expected_tally(stream, keys, k))
 
 
-def test_partitioned_path_cap_overflow_retry():
-    """Tiny cap_q must trigger overflow retry and stay exact."""
+@pytest.mark.parametrize("p_bits", [1, 4, 12])
+def test_lookup_bucketed_matches_searchsorted(p_bits):
+    """The bucket-pointer probe finds exactly the rows numpy's
+    searchsorted finds, for any prefix width."""
     import jax.numpy as jnp
 
     from kmer_denovo_filter_tpu.ops import device as dev
-    k = 31
-    stream = random_reads(20, k, with_n=False, seed=95)
-    filter_set = set()
-    for s in stream[:5]:
-        cap, _ = K.extract_read_kmers(s, k)
-        filter_set.update(cap.values())
-    keys = enc.kmers_to_keys(sorted(filter_set), k)
-    blocks, counts, perm = dev.build_hash_partitions(keys, 4)
-    batch, lens = pack_reads(stream)
-    from kmer_denovo_filter_tpu.engine import pad_read_batch
-    codes_p, lens_p = pad_read_batch(batch, lens)
-    acc = jnp.zeros(blocks.shape[:2], jnp.int32)
-    _acc, overflow = dev.partitioned_tally_step(
-        jnp.asarray(blocks), acc, jnp.asarray(codes_p),
-        jnp.asarray(lens_p), k, 2, 4, 16)
-    assert bool(overflow)  # 16-slot cap can't hold ~2k windows / 16 parts
 
-
-def test_scan_reads_for_hits_mid_partitioned_path():
-    """Force the hash-partitioned member sweep on the read scan."""
-    k = 31
-    reads = random_reads(40, k, with_n=True, seed=97)
-    target = set()
-    for s in reads[:8]:
-        cap, _ = K.extract_read_kmers(s, k)
-        target.update(list(cap.values())[::3])
-    idx = eng.KmerIndex.from_strings(target, k)
-    idx.small = False
-    idx.mid = True
-    batch, lens = pack_reads(reads)
-    found = eng.scan_reads_for_hits(idx, batch, lens)
-    for i, s in enumerate(reads):
-        cap, _ = K.extract_read_kmers(s, k)
-        expected = {p for p, c in cap.items() if c in target}
-        assert set(np.nonzero(found[i])[0].tolist()) == expected
-
-
-def test_partitioned_scan_hits_cap_overflow_retry():
-    """Tiny cap_q must flag overflow; engine retry stays exact."""
-    import jax.numpy as jnp
-
-    from kmer_denovo_filter_tpu.ops import device as dev
-    k = 31
-    reads = random_reads(16, k, with_n=False, seed=98)
-    target = set()
-    for s in reads[:4]:
-        cap, _ = K.extract_read_kmers(s, k)
-        target.update(cap.values())
-    keys = enc.kmers_to_keys(sorted(target), k)
-    blocks, _counts, _perm = dev.build_hash_partitions(keys, 4)
-    batch, lens = pack_reads(reads)
-    batch_p, lens_p = eng.pad_read_batch(batch, lens)
-    _found, overflow = dev.partitioned_scan_hits_step(
-        jnp.asarray(blocks), jnp.asarray(batch_p), jnp.asarray(lens_p),
-        k, enc.words_per_kmer(k), 4, 16)
-    assert bool(overflow)
-    idx = eng.KmerIndex.from_strings(target, k)
-    idx.small = False
-    idx.mid = True
-    found = eng.scan_reads_for_hits(idx, batch, lens)
-    for i, s in enumerate(reads):
-        cap, _ = K.extract_read_kmers(s, k)
-        expected = {p for p, c in cap.items() if c in target}
-        assert set(np.nonzero(found[i])[0].tolist()) == expected
+    rng = np.random.default_rng(p_bits)
+    k64 = np.unique(rng.integers(0, 2 ** 62, 3000, dtype=np.uint64)
+                    << np.uint64(2))
+    keys = np.stack([(k64 >> np.uint64(32)).astype(np.uint32),
+                     k64.astype(np.uint32)], axis=1)
+    padded = dev.pad_pow2_rows(keys, np.uint32(0xFFFFFFFF))
+    off, max_bucket = dev.build_bucket_offsets(padded, p_bits)
+    q64 = np.concatenate([k64[::3], rng.integers(
+        0, 2 ** 62, 500, dtype=np.uint64) << np.uint64(2)])
+    q = np.stack([(q64 >> np.uint64(32)).astype(np.uint32),
+                  q64.astype(np.uint32)], axis=1)
+    idx, found = dev.lookup_bucketed(
+        jnp.asarray(padded), jnp.asarray(off), jnp.asarray(q), 2,
+        p_bits, max(1, (max_bucket + 1).bit_length()))
+    pos = np.searchsorted(k64, q64)
+    want = (pos < len(k64)) & (k64[np.minimum(pos, len(k64) - 1)]
+                               == q64)
+    assert np.array_equal(np.asarray(found), want)
+    assert np.array_equal(np.asarray(idx)[want], pos[want])
 
 
 class TestOverflowRetries:
@@ -360,342 +292,44 @@ class TestOverflowRetries:
         the full-capacity retry and still produce exact tallies."""
         index, keys, codes, lengths, batch = self._index_and_batch()
         monkeypatch.setattr(eng, "_dedup_cap", lambda n: 4)
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)
-        monkeypatch.setattr(eng, "_MID_TABLE_M", 0)  # force bucketed
-        index.small = False
-        index.mid = False
         fc = eng.FilteredCounter(index)
         fc.feed(codes, lengths)
         got = fc.result()
         expected = _expected_tally(batch, keys, index.k)
         assert np.array_equal(got, expected)
 
-    def test_partitioned_cap_q_doubling(self, monkeypatch):
-        """Homopolymer batches concentrate every window in one
-        partition, defeating the initial cap_q."""
-        k = 31
-        reads = ["A" * 64] * 20
-        kmers = sorted(oracle_counts(reads, k))
-        keys = enc.kmers_to_keys(kmers, k)
-        index = eng.KmerIndex(keys, k)
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)  # force mid
-        monkeypatch.setenv("KDF_NO_PALLAS", "1")
-        index.small = False
-        index.mid = True
-        codes, lengths = pack_reads(reads)
-        fc = eng.FilteredCounter(index)
-        fc.feed(codes, lengths)
-        got = fc.result()
-        expected = _expected_tally(reads, keys, k)
-        assert np.array_equal(got, expected)
-
-    def test_pallas_w_part_doubling(self, monkeypatch):
-        """Tiny w_part must double until chunks fit (interpreter).
-
-        Pins the PLAIN (non-dedup) path — the dedup path's knob
-        ladder has its own test below."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
+    def test_bucketed_deferred_replay_across_feeds(self, monkeypatch):
+        """The overflow check is deferred one batch (the flag read is
+        a device sync); an overflowing batch settles at the next feed
+        or at result() and replays from its saved pre-batch
+        accumulator — exactly, across feeds."""
         index, keys, codes, lengths, batch = self._index_and_batch(
-            seed=23)
-        monkeypatch.setenv("KDF_DEDUP_JOIN", "0")
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)
-        index.small = False
-        index.mid = True
-        # many partitions so chunks span far beyond the initial window
-        t0, t1, perm, p = pj.build_tile_partitions(index.keys_np,
-                                                   p=512)
-        import jax.numpy as jnp
-        index._tile_parts = (jnp.asarray(t0), jnp.asarray(t1), perm, p)
+            seed=24)
+        monkeypatch.setattr(eng, "_dedup_cap", lambda n: 4)
         fc = eng.FilteredCounter(index)
-        fc.w_part = 4
         fc.feed(codes, lengths)
-        # the overflow check is deferred one batch (the flag read is a
-        # device sync; deferring lets host decode overlap the step) —
-        # the pending batch resolves and replays at result()
         assert fc._pending is not None
+        assert bool(fc._pending[3])  # more distinct keys than 4
+        fc.feed(codes, lengths)
+        fc.feed(codes[:5], lengths[:5])
         got = fc.result()
-        assert fc.w_part > 4  # the retry loop actually widened it
         assert fc._pending is None
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected)
-        # feeding the same batch again resolves the new pending entry
-        # on the next feed, replaying from the *post-batch-1* acc
-        fc.feed(codes, lengths)
-        fc.feed(codes, lengths)
-        got3 = fc.result()
-        assert np.array_equal(got3, expected * 3)
-
-    def test_pallas_sparse_batch_host_fallback(self, monkeypatch):
-        """A sparse batch spanning more partitions than the largest
-        tile window must fall back to the exact host tally, not raise
-        (the near-empty final batch of a WGS file hits this)."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        index, keys, _codes, _lengths, _batch = self._index_and_batch(
-            seed=29)
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)
-        index.small = False
-        index.mid = True
-        # enough partitions that a mixed real+sentinel sub-chunk spans
-        # beyond 2 * MAX_W_PART_TALLY no matter how the window doubles
-        p_forced = 4 * pj.MAX_W_PART_TALLY + 512
-        t0, t1, perm, p = pj.build_tile_partitions(index.keys_np,
-                                                   p=p_forced)
-        import jax.numpy as jnp
-        index._tile_parts = (jnp.asarray(t0), jnp.asarray(t1), perm, p)
-        fc = eng.FilteredCounter(index)
-        sparse = random_reads(2, 40, with_n=False, seed=30) + [
-            enc.keys_to_kmers(keys[:1], index.k)[0]]
-        codes, lengths = pack_reads(sparse)
-        fc.feed(codes, lengths)
-        got = fc.result()
-        assert fc._host_corr is not None  # the fallback actually ran
-        expected = _expected_tally(sparse, keys, index.k)
-        assert np.array_equal(got, expected)
-        # a second sparse batch accumulates on top, still exact
-        fc.feed(codes, lengths)
-        assert np.array_equal(fc.result(), expected * 2)
-
-    def _pallas_counter(self, monkeypatch, seed=31):
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)
-        index, keys, codes, lengths, batch = self._index_and_batch(
-            seed=seed)
-        index.small = False
-        index.mid = True
-        return index, keys, codes, lengths, batch
-
-    def test_pallas_dedup_default_matches_oracle(self, monkeypatch):
-        """The default pallas tally path is dedup-first; duplicated
-        batches (weights > 1) must stay bit-exact across feeds."""
-        index, keys, codes, lengths, batch = self._pallas_counter(
-            monkeypatch)
-        fc = eng.FilteredCounter(index)
-        assert fc._dedup
-        fc.feed(codes, lengths)
-        fc.feed(codes, lengths)
-        got = fc.result()
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected * 2)
-        assert fc._dedup  # nothing forced a fallback
-
-    def test_pallas_dedup_u_chunk_doubling(self, monkeypatch):
-        """A too-small unique capacity must double until the batch
-        fits, replaying exactly from the saved accumulator."""
-        index, keys, codes, lengths, batch = self._pallas_counter(
-            monkeypatch, seed=33)
-        fc = eng.FilteredCounter(index)
-        fc._dd_u_chunk = 512
-        fc.feed(codes, lengths)
-        got = fc.result()
-        assert fc._dd_u_chunk > 512
-        assert fc._dedup
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected)
-
-    def test_pallas_dedup_falls_back_on_undedupable_stream(
-            self, monkeypatch):
-        """A stream of distinct keys (no coverage locality) must trip
-        the capacity ladder and drop to the plain join — exactly."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)
-        k = 31
-        # 152 bp keeps the post-extraction stream dense (122 real
-        # windows per 128-column row), so one local chunk really
-        # holds > LCHUNK_DD/2 distinct keys
-        reads = random_reads(96, 152, with_n=False, seed=35)
-        kmers = sorted(oracle_counts(reads, k))
-        keys = enc.kmers_to_keys(kmers[: len(kmers) // 2], k)
-        index = eng.KmerIndex(keys, k)
-        index.small = False
-        index.mid = True
-        codes, lengths = pack_reads(reads)
-        fc = eng.FilteredCounter(index)
-        fc._dd_u_chunk = pj.LCHUNK_DD // 2
-        fc.feed(codes, lengths)
-        got = fc.result()
-        assert not fc._dedup  # the ladder gave up on dedup
-        expected = _expected_tally(reads, keys, k)
-        assert np.array_equal(got, expected)
-
-
-    def test_small_dedup_feeds_match_oracle(self, monkeypatch):
-        """The small-table dedup-first sweep (mixed-space weighted
-        all-pairs, pj.small_tally_step_dedup) must stay bit-exact
-        through grouped, partial, and single-batch flushes."""
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setenv("KDF_SB_JOIN", "2")
-        index, keys, codes, lengths, batch = self._index_and_batch(
-            seed=61)
-        assert index.small
-        fc = eng.FilteredCounter(index)
-        fc.feed(codes, lengths)
-        assert fc._small_dedup
-        fc.feed(codes, lengths)     # flushes a 2-batch group
-        fc.feed(codes, lengths)     # partial buffer at result()
-        got = fc.result()
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected * 3)
-
-    def test_small_dedup_overflow_replays_exactly(self, monkeypatch):
-        """A too-small unique capacity must ladder (or drop to the
-        plain sweep) and replay from the saved accumulator."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setenv("KDF_SB_JOIN", "1")
-        index, keys, codes, lengths, batch = self._index_and_batch(
-            seed=63)
-        assert index.small
-        fc = eng.FilteredCounter(index)
-        fc.feed(codes, lengths)
-        fc._sm_u_chunk = 128  # force the next feed to overflow
-        fc.feed(codes, lengths)
-        got = fc.result()
-        assert fc._sm_u_chunk > 128 or not fc._small_dedup
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected * 2)
-
-    def test_small_dedup_ladder_exhaustion_goes_plain(
-            self, monkeypatch):
-        """When u_chunk can no longer double, the counter drops to
-        the plain sweep permanently — exactly."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setenv("KDF_SB_JOIN", "1")
-        # dense distinct stream: long reads defeat chunk-local dedup
-        reads = random_reads(96, 152, with_n=False, seed=65)
-        kmers = sorted({km for s in reads
-                        for km in oracle_counts([s], 31)})
-        keys = enc.kmers_to_keys(kmers[: len(kmers) // 2], 31)
-        index = eng.KmerIndex(keys, 31)
-        assert index.small
-        codes, lengths = pack_reads(reads)
-        fc = eng.FilteredCounter(index)
-        fc.feed(codes, lengths)
-        fc._sm_u_chunk = pj.LCHUNK_DD // 2
-        fc.feed(codes, lengths)
-        got = fc.result()
-        assert not fc._small_dedup  # the ladder gave up
-        expected = _expected_tally(reads, keys, 31)
-        assert np.array_equal(got, expected * 2)
-
-    def test_superbatch_feeds_match_oracle(self, monkeypatch):
-        """Buffered same-shape feeds join as ONE super-batch stream
-        (pj.join_tally_superbatch_dedup) and must stay bit-exact,
-        including a trailing partial buffer flushed at result()."""
-        index, keys, codes, lengths, batch = self._pallas_counter(
-            monkeypatch, seed=41)
-        monkeypatch.setenv("KDF_SB_JOIN", "2")
-        fc = eng.FilteredCounter(index)
-        assert fc._sb_join == 2
-        fc.feed(codes, lengths)
-        assert fc._pending is None  # buffered, not yet dispatched
-        fc.feed(codes, lengths)     # flushes a 2-batch super-batch
-        assert fc._pending is not None
-        fc.feed(codes, lengths)     # partial buffer at result()
-        got = fc.result()
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected * 3)
-
-    def test_superbatch_overflow_replay(self, monkeypatch):
-        """A too-small unique capacity inside the super-batch must
-        ladder up and replay the whole group exactly."""
-        index, keys, codes, lengths, batch = self._pallas_counter(
-            monkeypatch, seed=43)
-        monkeypatch.setenv("KDF_SB_JOIN", "2")
-        fc = eng.FilteredCounter(index)
-        fc._dd_u_chunk = 512
-        fc.feed(codes, lengths)
-        fc.feed(codes, lengths)
-        got = fc.result()
-        assert fc._dd_u_chunk > 512  # the ladder actually ran
-        expected = _expected_tally(batch, keys, index.k)
-        assert np.array_equal(got, expected * 2)
-
-    def test_superbatch_shape_change_flushes(self, monkeypatch):
-        """A batch of a different shape must flush the buffer first
-        (stacking stays rectangular) and remain exact."""
-        index, keys, codes, lengths, batch = self._pallas_counter(
-            monkeypatch, seed=45)
-        monkeypatch.setenv("KDF_SB_JOIN", "4")
-        short = random_reads(8, 48, with_n=False, seed=46)
-        codes2, lengths2 = pack_reads(short)
-        fc = eng.FilteredCounter(index)
-        fc.feed(codes, lengths)
-        fc.feed(codes2, lengths2)   # shape change → flush + rebuffer
-        fc.feed(codes, lengths)
-        got = fc.result()
         expected = (_expected_tally(batch, keys, index.k) * 2
-                    + _expected_tally(short, keys, index.k))
+                    + _expected_tally(batch[:5], keys, index.k))
         assert np.array_equal(got, expected)
 
-    def test_scan_many_matches_per_batch(self, monkeypatch):
-        """scan_reads_for_hits_many (member super-batch) must equal
-        per-batch scan_reads_for_hits, including ragged lengths."""
-        index, _keys, codes, lengths, _batch = self._pallas_counter(
-            monkeypatch, seed=47)
-        monkeypatch.setenv("KDF_SB_JOIN", "3")  # full group of 3
-        # same row count as the first batch (50) so the group is
-        # super-batch eligible; shorter reads exercise the L padding
-        b2 = random_reads(50, 56, seed=48)
-        codes2, lengths2 = pack_reads(b2)
-        batches = [(codes, lengths), (codes2, lengths2),
-                   (codes, lengths)]
-        refs = [eng.scan_reads_for_hits(index, c, l)
-                for c, l in batches]
-        outs = eng.scan_reads_for_hits_many(index, batches)
-        assert len(outs) == 3
-        for got, ref in zip(outs, refs):
-            assert np.array_equal(got, ref)
-
-
-    def test_small_member_dedup_matches_plain(self, monkeypatch):
-        """The dedup-first small member sweep (order-free all-pairs
-        over the compacted stream + bit fan-out) must equal the plain
-        small sweep, single and grouped."""
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        index, _keys, codes, lengths, _batch = self._index_and_batch(
-            seed=67)
-        assert index.small
-        monkeypatch.setenv("KDF_SMALL_DEDUP", "0")
-        ref = eng.scan_reads_for_hits(index, codes, lengths)
-        monkeypatch.delenv("KDF_SMALL_DEDUP")
+    def test_bucketed_scan_cap_overflow_retry(self, monkeypatch):
+        """A dedup capacity too small for the batch's distinct keys
+        must retry the bucketed member scan at full capacity."""
+        index, keys, codes, lengths, batch = self._index_and_batch(
+            seed=25)
+        monkeypatch.setattr(eng, "_dedup_cap", lambda n: 4)
         got = eng.scan_reads_for_hits(index, codes, lengths)
-        assert index._small_member_u  # the dedup path actually ran
-        assert np.array_equal(got, ref)
-        # grouped path with ragged lengths
-        monkeypatch.setenv("KDF_SB_JOIN", "3")
-        b2 = random_reads(40, 56, seed=68)
-        codes2, lengths2 = pack_reads(b2)
-        batches = [(codes, lengths), (codes2, lengths2),
-                   (codes, lengths)]
-        refs = [eng.scan_reads_for_hits(index, c, l)
-                for c, l in batches]
-        outs = eng.scan_reads_for_hits_many(index, batches)
-        for g, r in zip(outs, refs):
-            assert np.array_equal(g, r)
-
-    def test_small_member_dedup_ladder_exhaustion(self, monkeypatch):
-        """An undedupable stream must drop to the plain sweep and
-        cache the give-up on the index."""
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        reads = random_reads(96, 152, with_n=False, seed=69)
-        kmers = sorted({km for s in reads
-                        for km in oracle_counts([s], 31)})
-        keys = enc.kmers_to_keys(kmers[: len(kmers) // 2], 31)
-        index = eng.KmerIndex(keys, 31)
-        assert index.small
-        codes, lengths = pack_reads(reads)
-        index._small_member_u = pj.LCHUNK_DD // 2
-        got = eng.scan_reads_for_hits(index, codes, lengths)
-        assert not index._small_member_dedup_ok
-        monkeypatch.setenv("KDF_SMALL_DEDUP", "0")
-        ref = eng.scan_reads_for_hits(index, codes, lengths)
-        assert np.array_equal(got, ref)
-
+        target = set(enc.keys_to_kmers(keys, index.k))
+        for i, s in enumerate(batch):
+            per_pos, _ = K.extract_read_kmers(s, index.k)
+            want = {p for p, c in per_pos.items() if c in target}
+            assert set(np.nonzero(got[i])[0].tolist()) == want
 
 def _expected_tally(reads, keys, k):
     from collections import Counter
@@ -746,12 +380,12 @@ class TestHostKmerIndex:
 
     def test_factory_gate(self, monkeypatch):
         keys, counts, _ = self._keys()
-        monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES", 0)
+        monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", "0")
         import jax as _jax
         if len(_jax.devices()) < 2:
             idx = eng.make_membership_index(keys, 31, counts)
             assert isinstance(idx, eng.HostKmerIndex)
-        monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES", 8 << 30)
+        monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", str(8 << 30))
         idx2 = eng.make_membership_index(keys, 31, counts)
         assert isinstance(idx2, eng.KmerIndex)
 
@@ -785,99 +419,163 @@ class TestHostFilteredCounter:
             sorted({km for s in random_reads(30, 31, with_n=False,
                                              seed=73)
                     for km in oracle_counts([s], 31)}), 31)
-        monkeypatch.setenv("KDF_SHARDED", "0")  # single-chip rule
-        monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES", 0)
+        monkeypatch.setenv("KDF_SHARDED", "0")  # single-device rule
+        monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", "0")
         fc = eng.make_parent_filter_counter(keys, 31)
         assert isinstance(fc, eng.HostFilteredCounter)
-        monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES", 8 << 30)
+        monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", str(8 << 30))
         fc2 = eng.make_parent_filter_counter(keys, 31)
         assert isinstance(fc2, eng.FilteredCounter)
 
 
-class TestWideKTileJoin:
-    """k > 127 (W 9..13) rides the wide tile-join via cross-batch
-    window accumulation instead of falling off the ~10x partitioned-
-    sweep cliff; exact vs the host oracle (Pallas interpreter)."""
+class TestWideKeys:
+    """W ≥ 3 keys (k > 31) through the bucketed probe, tally and
+    member scan, exact vs the host oracle (W = 3 … 13)."""
 
-    def _setup(self, k, monkeypatch, n_filter=40, read_len=None):
-        monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-        monkeypatch.setattr(eng, "_SMALL_TABLE_M", 0)
-        read_len = read_len or (k + 9)   # window-sparse reads
-        stream = random_reads(120, read_len, with_n=False, seed=77)
-        stream = [s for s in stream if len(s) >= k]
-        filter_reads = stream[:n_filter]
-        filter_set = set()
-        for s in filter_reads:
-            cap, _ = K.extract_read_kmers(s, k)
-            filter_set.update(cap.values())
-        fidx = eng.KmerIndex.from_strings(filter_set, k)
-        fidx.small = False
-        fidx.mid = False
-        oc = Counter()
-        for s in stream:
-            cap, _ = K.extract_read_kmers(s, k)
-            for c in cap.values():
-                if c in filter_set:
-                    oc[c] += 1
-        return fidx, stream, filter_set, oc
+    def _index(self, k):
+        table_reads = random_reads(30, k + 40, with_n=False, seed=k)
+        kmers = sorted({km for s in table_reads
+                        for km in oracle_counts([s], k)})
+        keys = enc.kmers_to_keys(kmers, k)
+        batch = random_reads(30, k + 40, seed=k + 1) + table_reads[:6]
+        return eng.KmerIndex(keys, k), keys, batch
 
-    @pytest.mark.parametrize("k", [151, 201])
-    def test_filtered_counter_accumulates_and_matches_oracle(
-            self, k, monkeypatch):
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        assert enc.words_per_kmer(k) > 8  # genuinely past old cliff
-        assert enc.words_per_kmer(k) <= pj.MAX_W_WIDE
-        fidx, stream, _fs, oc = self._setup(k, monkeypatch)
-        fc = eng.FilteredCounter(fidx)
-        assert fc.pallas_wide
-        # raise the density threshold so the sparse batches genuinely
-        # buffer across feeds before the single dense join
-        fc._wide_flush_rows = 10 ** 9
-        for lo in range(0, len(stream), 30):
-            batch, lens = pack_reads(stream[lo:lo + 30])
-            fc.feed(batch, lens)
-        assert fc._wide_buf_rows > 0  # accumulated, not yet joined
-        assert fc._pending is None    # no join dispatched yet
-        res = fc.result()
-        assert fc._wide_buf_rows == 0
-        got = {s: int(c) for s, c in zip(fidx.to_strings(), res)
-               if c > 0}
-        assert got == dict(oc)
+    @pytest.mark.parametrize("k", [33, 47, 63, 101, 151, 201])
+    def test_tally_matches_oracle(self, k):
+        index, keys, batch = self._index(k)
+        codes, lengths = pack_reads(batch)
+        fc = eng.FilteredCounter(index)
+        fc.feed(codes, lengths)
+        fc.feed(codes[:9], lengths[:9])
+        expected = (_expected_tally(batch, keys, k)
+                    + _expected_tally(batch[:9], keys, k))
+        assert np.array_equal(fc.result(), expected)
+        assert expected.sum() > 0
 
-    def test_mid_feed_flush_crossing_threshold(self, monkeypatch):
-        """Crossing the dense-super-batch threshold mid-stream joins
-        the buffered keys and keeps tallies exact."""
-        k = 151
-        fidx, stream, _fs, oc = self._setup(k, monkeypatch)
-        fc = eng.FilteredCounter(fidx)
-        fc._wide_flush_rows = 64  # force a flush on every feed
-        for lo in range(0, len(stream), 30):
-            batch, lens = pack_reads(stream[lo:lo + 30])
-            fc.feed(batch, lens)
-        res = fc.result()
-        got = {s: int(c) for s, c in zip(fidx.to_strings(), res)
-               if c > 0}
-        assert got == dict(oc)
-
-    def test_wide_vmem_window_caps(self):
-        from kmer_denovo_filter_tpu.ops import pallas_join as pj
-        # W <= 8 keeps the measured ceilings
-        assert pj.max_wide_w_part_tally(4) == pj.MAX_W_PART_TALLY
-        assert pj.max_wide_w_part_member(8) == pj.MAX_W_PART
-        # W = 13 windows stay inside the VMEM budget
-        w13 = pj.max_wide_w_part_tally(13)
-        assert 8 <= w13 < pj.MAX_W_PART_TALLY
-        assert 4 * pj.TILE_KEYS * (4 * 13 + 1) * w13 <= (12 << 20)
-
-    def test_scan_hits_falls_back_exactly(self, monkeypatch):
-        """Member scan at k=151: sparse batches overflow the wide
-        windows and must fall through to an exact XLA path."""
-        k = 151
-        fidx, stream, filter_set, _oc = self._setup(k, monkeypatch)
-        batch, lens = pack_reads(stream[:40])
-        got = eng.scan_reads_for_hits(fidx, batch, lens)
-        for i, s in enumerate(stream[:40]):
+    @pytest.mark.parametrize("k", [33, 47, 63, 101, 151, 201])
+    def test_member_matches_oracle(self, k):
+        index, keys, batch = self._index(k)
+        codes, lengths = pack_reads(batch)
+        found = eng.scan_reads_for_hits(index, codes, lengths)
+        target = set(enc.keys_to_kmers(keys, k))
+        for i, s in enumerate(batch):
             per_pos, _ = K.extract_read_kmers(s, k)
-            want = [per_pos.get(j) in filter_set
-                    for j in range(len(s) - k + 1)]
-            assert list(got[i][:len(want)]) == want
+            want = {p for p, c in per_pos.items() if c in target}
+            assert set(np.nonzero(found[i])[0].tolist()) == want
+        assert found.any()
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+class TestDeviceBudgetAndDispatch:
+    def test_budget_from_memory_stats(self, monkeypatch):
+        monkeypatch.delenv("KDF_DEVICE_TABLE_BYTES", raising=False)
+        monkeypatch.setattr(
+            eng.jax, "local_devices",
+            lambda: [_FakeDevice({"bytes_limit": 60 << 30})])
+        assert eng.device_table_budget() == 30 << 30
+        # a table over half the device (and over it per shard of the
+        # test mesh) goes to the host index
+        keys = np.stack([np.arange(64, dtype=np.uint32),
+                         np.zeros(64, np.uint32)], axis=1)
+        monkeypatch.setattr(
+            eng.jax, "local_devices",
+            lambda: [_FakeDevice({"bytes_limit": 40})])
+        assert eng.device_table_budget() == 20
+        assert isinstance(eng.make_membership_index(keys, 31),
+                          eng.HostKmerIndex)
+
+    @pytest.mark.parametrize("stats", [None, {}, {"peak_bytes_in_use": 1}])
+    def test_budget_default_without_stats(self, monkeypatch, stats):
+        monkeypatch.delenv("KDF_DEVICE_TABLE_BYTES", raising=False)
+        monkeypatch.setattr(eng.jax, "local_devices",
+                            lambda: [_FakeDevice(stats)])
+        assert eng.device_table_budget() == eng._DEFAULT_TABLE_BYTES
+        monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", "12345")
+        assert eng.device_table_budget() == 12345
+
+    def test_stream_counter_shards_on_accelerators(self, monkeypatch):
+        """Multi-device accelerator backends shard Module 1 counting
+        by default; the CPU test mesh only when forced."""
+        import jax as _jax
+        if len(_jax.devices()) < 2:
+            pytest.skip("needs multiple devices")
+        monkeypatch.delenv("KDF_SHARDED", raising=False)
+        assert type(eng.make_stream_counter(31)) is eng.StreamCounter
+        monkeypatch.setattr(eng.jax, "default_backend", lambda: "gpu")
+        assert isinstance(eng.make_stream_counter(31),
+                          eng.ShardedStreamCounter)
+        monkeypatch.setenv("KDF_SHARDED", "0")
+        assert type(eng.make_stream_counter(31)) is eng.StreamCounter
+
+
+@pytest.mark.parametrize("k", [3, 7, 11, 17, 21, 25, 29])
+def test_tally_and_scan_match_oracle_across_k(k):
+    """The filtered tally and the anchoring scan agree with the string
+    oracle for one-word (k ≤ 15) and two-word keys, N-bearing reads."""
+    stream = random_reads(40, k + 30, with_n=True, seed=100 + k)
+    kmers = sorted({c for s in stream[:12]
+                    for c in K.extract_read_kmers(s, k)[0].values()})
+    keys = enc.kmers_to_keys(kmers[::2], k)
+    index = eng.KmerIndex(keys, k)
+    codes, lengths = pack_reads(stream)
+    fc = eng.FilteredCounter(index)
+    fc.feed(codes, lengths)
+    assert np.array_equal(fc.result(), _expected_tally(stream, keys, k))
+    found = eng.scan_reads_for_hits(index, codes, lengths)
+    target = set(enc.keys_to_kmers(keys, k))
+    for i, s in enumerate(stream):
+        per_pos, _ = K.extract_read_kmers(s, k)
+        want = {p for p, c in per_pos.items() if c in target}
+        assert set(np.nonzero(found[i])[0].tolist()) == want
+
+
+def test_build_bucket_offsets_are_prefix_ranks():
+    """off[p] is the first row whose top p_bits are ≥ p; max_bucket
+    bounds every bucket, so the probe's round count covers it."""
+    from kmer_denovo_filter_tpu.ops import device as dev
+
+    rng = np.random.default_rng(3)
+    w0 = np.sort(rng.integers(0, 2 ** 32, 5000, dtype=np.uint32))
+    keys = np.stack([w0, np.zeros_like(w0)], axis=1)
+    off, max_bucket = dev.build_bucket_offsets(keys, 6)
+    prefix = w0 >> np.uint32(26)
+    for p in range(64):
+        assert off[p] == np.searchsorted(prefix, p)
+    assert off[64] == len(w0)
+    assert max_bucket == np.diff(off).max()
+
+
+def test_pad_pow2_rows():
+    from kmer_denovo_filter_tpu.ops import device as dev
+
+    a = np.arange(10, dtype=np.uint32).reshape(5, 2)
+    p = dev.pad_pow2_rows(a, np.uint32(7))
+    assert p.shape == (8, 2) and (p[5:] == 7).all()
+    assert np.array_equal(p[:5], a)
+    b = np.zeros((4, 2), np.uint32)
+    assert dev.pad_pow2_rows(b, 1) is b
+
+
+def test_sort_count_perm_inverts_to_window_order():
+    """sort_count_perm's permutation maps sorted rows back to their
+    original rows, and run counts sum to the row count."""
+    import jax.numpy as jnp
+
+    from kmer_denovo_filter_tpu.ops import device as dev
+
+    rng = np.random.default_rng(9)
+    flat = rng.integers(0, 6, (300, 2), dtype=np.uint32)
+    skeys, starts, counts, _group, perm = dev.sort_count_perm(
+        jnp.asarray(flat), 2)
+    skeys, perm = np.asarray(skeys), np.asarray(perm)
+    assert np.array_equal(flat[perm], skeys)
+    assert int(np.asarray(counts).sum()) == 300
+    uniq = np.unique(flat, axis=0)
+    assert int(np.asarray(starts).sum()) == len(uniq)

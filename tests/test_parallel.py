@@ -282,26 +282,25 @@ def test_sharded_filtered_counter_deferred_overflow_replay():
     assert total == 16 * (60 - k + 1)  # every valid window tallied
 
 
-# ── multi-chip tile-join (Pallas interpreter on the CPU mesh) ───────
+# ── routed sharded engine: wide keys, dispatch, route overflow ──────
 
-def _table_keys(n_reads, k, seed):
-    reads = random_reads(n_reads, 64, with_n=False, seed=seed)
+def _table_keys(n_reads, k, seed, read_len=64):
+    reads = random_reads(n_reads, read_len, with_n=False, seed=seed)
     kmers = sorted({km for s in reads for km in oracle_counts([s], k)})
     return enc.kmers_to_keys(kmers, k), reads
 
 
 @needs_mesh
-def test_sharded_tile_counter_matches_oracle():
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileCounter,
-    )
+@pytest.mark.parametrize("k", [33, 63, 101])
+def test_sharded_filtered_counter_wide_matches_oracle(k):
+    """W ≥ 3 keys through the routed shard_map tally, two feeds."""
+    from kmer_denovo_filter_tpu.parallel import ShardedFilteredCounter
     from tests.test_engine import _expected_tally
 
-    k = 31
-    keys, table_reads = _table_keys(60, k, seed=41)
-    batch = random_reads(40, 64, seed=42) + table_reads[:10]
+    keys, table_reads = _table_keys(30, k, seed=k, read_len=96)
+    batch = random_reads(20, 96, seed=k + 1) + table_reads[:6]
     codes, lengths = pack_reads(batch)
-    fc = ShardedTileCounter(keys, k, make_mesh(), interpret=True)
+    fc = ShardedFilteredCounter(keys, k, make_mesh())
     fc.feed(codes, lengths)
     fc.feed(codes, lengths)
     got = fc.result()
@@ -311,112 +310,70 @@ def test_sharded_tile_counter_matches_oracle():
 
 
 @needs_mesh
-def test_sharded_tile_counter_route_overflow_retry():
-    """A homopolymer batch routes every window to one owner shard,
-    overflowing the initial segment capacity; the deferred retry at
-    doubled cap must still count exactly."""
-    from kmer_denovo_filter_tpu.ops import pallas_join as pj
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileCounter,
-    )
-    from tests.test_engine import _expected_tally
-
-    k = 31
-    keys, _ = _table_keys(40, k, seed=43)
-    homo = "A" * 64
-    n_homo = (pj.CHUNK_T // (64 - k + 1) + 2) * len(jax.devices())
-    batch = [homo] * n_homo
-    codes, lengths = pack_reads(batch)
-    fc = ShardedTileCounter(keys, k, make_mesh(), interpret=True)
-    fc.feed(codes, lengths)
-    assert bool(np.asarray(fc._pending[3]).any())  # route overflowed
-    got = fc.result()
-    expected = _expected_tally(batch, keys, k)
-    assert np.array_equal(got, expected)
-
-
-@needs_mesh
-def test_sharded_tile_counter_sparse_host_fallback():
-    """A sparse batch spanning more partitions than the widest window
-    falls back to the exact host tally (sharded analog of the
-    single-chip fallback)."""
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from kmer_denovo_filter_tpu.ops import pallas_join as pj
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileCounter,
-    )
-    from kmer_denovo_filter_tpu.parallel.sharded import AXIS
-    from tests.test_engine import _expected_tally
-
-    k = 31
-    keys, table_reads = _table_keys(60, k, seed=44)
-    mesh = make_mesh()
-    fc = ShardedTileCounter(keys, k, mesh, interpret=True)
-    # rebuild planes with far more partitions than 2 * MAX_W_PART_TALLY
-    p_forced = 2 * pj.MAX_W_PART_TALLY + 128
-    t0, t1, perms, p = pj.build_shard_tile_partitions(
-        fc.keys_np, fc.s, p=p_forced)
-    spec = NamedSharding(mesh, P(AXIS, None, None))
-    fc.t0 = jax.device_put(jnp.asarray(t0), spec)
-    fc.t1 = jax.device_put(jnp.asarray(t1), spec)
-    fc.acc = jax.device_put(jnp.zeros(t0.shape, jnp.int32), spec)
-    fc.p, fc.perms = p, perms
-    fc._step_cache.clear()
-    fc.w_part = pj.MAX_W_PART_TALLY  # no narrower window to widen
-    sparse = random_reads(2, 40, with_n=False, seed=45) + [
-        table_reads[0]]
-    codes, lengths = pack_reads(sparse)
-    fc.feed(codes, lengths)
-    got = fc.result()
-    assert fc._host_corr is not None
-    expected = _expected_tally(sparse, keys, k)
-    assert np.array_equal(got, expected)
-
-
-@needs_mesh
-def test_sharded_tile_scanner_parity():
+@pytest.mark.parametrize("k", [33, 63, 101])
+def test_sharded_scan_wide_parity(k):
+    """W ≥ 3 routed member scan equals the single-device scan."""
     from kmer_denovo_filter_tpu import engine as eng
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileScanner,
+    from kmer_denovo_filter_tpu.parallel import (
+        sharded_scan_reads_for_hits,
     )
 
-    k = 31
-    keys, table_reads = _table_keys(40, k, seed=46)
+    keys, table_reads = _table_keys(30, k, seed=k + 7, read_len=96)
     index = eng.KmerIndex(keys, k)
-    reads = random_reads(30, 64, seed=47) + table_reads[:8]
-    codes, lengths = pack_reads(reads)
+    batch = random_reads(20, 96, seed=k + 8) + table_reads[:6]
+    codes, lengths = pack_reads(batch)
     expected = eng.scan_reads_for_hits(index, codes, lengths)
-    scan = ShardedTileScanner(keys, k, make_mesh(), interpret=True)
-    got = scan(codes, lengths)
-    assert got.shape == expected.shape
+    got = sharded_scan_reads_for_hits(ShardedKmerIndex(keys, k,
+                                                       make_mesh()),
+                                      codes, lengths)
     assert np.array_equal(got, expected)
     assert expected.any()
 
 
 @needs_mesh
-def test_tile_dispatch_from_engine(monkeypatch):
-    """KDF_SHARDED=1 + KDF_PALLAS_INTERPRET=1 routes both engine
-    factories through the tile-join mesh classes."""
-    from kmer_denovo_filter_tpu import engine as eng
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileCounter,
-        ShardedTileScanner,
-    )
+def test_sharded_counter_route_overflow_retry():
+    """A homopolymer batch routes every window to one owner shard,
+    overflowing the default route capacity; the deferred replay at
+    doubled capacity must count exactly."""
+    from kmer_denovo_filter_tpu.parallel import ShardedFilteredCounter
+    from tests.test_engine import _expected_tally
 
     k = 31
-    keys, _ = _table_keys(30, k, seed=48)
+    batch = ["A" * 64] * (4 * len(jax.devices()))
+    keys = enc.kmers_to_keys(sorted(oracle_counts(batch, k)), k)
+    codes, lengths = pack_reads(batch)
+    fc = ShardedFilteredCounter(keys, k, make_mesh())
+    fc.feed(codes, lengths)
+    assert bool(np.asarray(fc._pending[3]).any())  # route overflowed
+    got = fc.result()
+    assert np.array_equal(got, _expected_tally(batch, keys, k))
+
+
+@needs_mesh
+@pytest.mark.parametrize("k", [31, 33])
+def test_routed_dispatch_from_engine(monkeypatch, k):
+    """KDF_SHARDED=1 routes both engine factories through the routed
+    mesh engine with results equal to one device; =0 never shards."""
+    from kmer_denovo_filter_tpu import engine as eng
+    from kmer_denovo_filter_tpu.parallel import ShardedFilteredCounter
+
+    keys, table_reads = _table_keys(20, k, seed=48 + k)
     index = eng.KmerIndex(keys, k)
+    codes, lengths = pack_reads(random_reads(10, 64, seed=49)
+                                + table_reads[:4])
+    monkeypatch.setenv("KDF_SHARDED", "0")
+    single = eng.make_filtered_counter(index)
+    assert type(single) is eng.FilteredCounter
+    single.feed(codes, lengths)
+    base_scan = eng.make_scanner(index)(codes, lengths)
     monkeypatch.setenv("KDF_SHARDED", "1")
-    monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-    fc = eng.make_filtered_counter(index)
-    assert isinstance(fc, ShardedTileCounter)
-    scan = eng.make_scanner(index)
-    assert isinstance(scan, ShardedTileScanner)
-    monkeypatch.setenv("KDF_PALLAS_INTERPRET", "0")
-    monkeypatch.setenv("KDF_NO_PALLAS", "1")
-    fc2 = eng.make_filtered_counter(index)
-    assert not isinstance(fc2, ShardedTileCounter)
+    for fc in (eng.make_filtered_counter(index),
+               eng.make_parent_filter_counter(keys, k)):
+        assert isinstance(fc, ShardedFilteredCounter)
+        fc.feed(codes, lengths)
+        assert np.array_equal(fc.result(), single.result())
+    assert np.array_equal(eng.make_scanner(index)(codes, lengths),
+                          base_scan)
 
 
 @needs_mesh
@@ -484,73 +441,8 @@ def test_discovery_child_count_sharded(tmp_path, monkeypatch):
 
 
 @needs_mesh
-@pytest.mark.parametrize("k", [33, 63])
-def test_sharded_tile_counter_wide_matches_oracle(k):
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileCounter,
-    )
-    from tests.test_engine import _expected_tally
-
-    reads = random_reads(40, 96, with_n=False, seed=k)
-    kmers = sorted({km for s in reads
-                    for km in oracle_counts([s], k)})
-    keys = enc.kmers_to_keys(kmers, k)
-    batch = random_reads(20, 96, seed=k + 1) + reads[:6]
-    codes, lengths = pack_reads(batch)
-    fc = ShardedTileCounter(keys, k, make_mesh(), interpret=True)
-    fc.feed(codes, lengths)
-    got = fc.result()
-    expected = _expected_tally(batch, keys, k)
-    assert np.array_equal(got, expected)
-    assert expected.sum() > 0
-
-
-@needs_mesh
-def test_sharded_tile_scanner_wide_parity():
-    from kmer_denovo_filter_tpu import engine as eng
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileScanner,
-    )
-
-    k = 63
-    reads = random_reads(30, 96, with_n=False, seed=71)
-    kmers = sorted({km for s in reads
-                    for km in oracle_counts([s], k)})
-    keys = enc.kmers_to_keys(kmers, k)
-    index = eng.KmerIndex(keys, k)
-    batch = random_reads(20, 96, seed=72) + reads[:6]
-    codes, lengths = pack_reads(batch)
-    expected = eng.scan_reads_for_hits(index, codes, lengths)
-    scan = ShardedTileScanner(keys, k, make_mesh(), interpret=True)
-    got = scan(codes, lengths)
-    assert np.array_equal(got, expected)
-    assert expected.any()
-
-
-@needs_mesh
-def test_tile_dispatch_wide_from_engine(monkeypatch):
-    """Wide-key multi-device tables route through the tile classes."""
-    from kmer_denovo_filter_tpu import engine as eng
-    from kmer_denovo_filter_tpu.parallel.tile_sharded import (
-        ShardedTileCounter,
-        ShardedTileScanner,
-    )
-
-    k = 33
-    reads = random_reads(20, 96, with_n=False, seed=81)
-    kmers = sorted({km for s in reads
-                    for km in oracle_counts([s], k)})
-    index = eng.KmerIndex(enc.kmers_to_keys(kmers, k), k)
-    monkeypatch.setenv("KDF_SHARDED", "1")
-    monkeypatch.setenv("KDF_PALLAS_INTERPRET", "1")
-    assert isinstance(eng.make_filtered_counter(index),
-                      ShardedTileCounter)
-    assert isinstance(eng.make_scanner(index), ShardedTileScanner)
-
-
-@needs_mesh
 def test_membership_index_budget_gate_shards(monkeypatch):
-    """Above the per-chip budget the factory shards the table across
+    """Above the per-device budget the factory shards the table across
     the mesh; membership answers stay identical."""
     from kmer_denovo_filter_tpu import engine as eng
     from kmer_denovo_filter_tpu.parallel import ShardedKmerIndex
@@ -560,10 +452,8 @@ def test_membership_index_budget_gate_shards(monkeypatch):
     kmers = sorted({km for s in reads
                     for km in oracle_counts([s], k)})
     keys = enc.kmers_to_keys(kmers, k)
-    monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES", 0)
-    # per-shard share still "over budget" → host; widen so sharding wins
-    monkeypatch.setattr(eng, "_DEVICE_TABLE_MAX_BYTES",
-                        keys.nbytes)  # full table over, 1/8 under
+    # full table over the budget, its 1/8 share under
+    monkeypatch.setenv("KDF_DEVICE_TABLE_BYTES", str(keys.nbytes))
     idx = eng.make_membership_index(keys, k)
     assert isinstance(idx, ShardedKmerIndex)
     other = enc.kmers_to_keys(
@@ -572,3 +462,46 @@ def test_membership_index_budget_gate_shards(monkeypatch):
     queries = np.concatenate([keys[::2], other])
     expected = eng.KmerIndex(keys, k).membership(queries)
     assert np.array_equal(idx.membership(queries), expected)
+
+
+@needs_mesh
+def test_sharded_programs_compile_once_per_shape():
+    """Batches of one shape reuse one compiled count and scan program
+    (a fresh program per batch would recompile every batch)."""
+    from kmer_denovo_filter_tpu.parallel import (
+        sharded as sh,
+        sharded_scan_reads_for_hits,
+    )
+
+    k = 31
+    keys, table_reads = _table_keys(10, k, seed=61)
+    mesh = make_mesh()
+    index = ShardedKmerIndex(keys, k, mesh)
+    codes, lengths = pack_reads(random_reads(16, 64, seed=62)
+                                + table_reads[:4])
+    sharded_scan_reads_for_hits(index, codes, lengths)
+    n_programs = len(index._probe_cache)
+    first = sharded_scan_reads_for_hits(index, codes, lengths)
+    assert len(index._probe_cache) == n_programs
+    assert first.any()
+    sh.make_count_program.cache_clear()
+    sharded_count(codes, lengths, k, mesh)
+    sharded_count(codes, lengths, k, mesh)
+    info = sh.make_count_program.cache_info()
+    assert info.hits >= 1 and info.currsize == info.misses
+
+
+def test_owner_of_keys_uniform_and_row_local():
+    """The multi-host merge's owner map: a function of the row alone,
+    roughly uniform over processes even for low-entropy keys."""
+    from kmer_denovo_filter_tpu.parallel import multihost
+
+    rng = np.random.default_rng(17)
+    keys = np.unique(rng.integers(0, 64, (8192, 2), dtype=np.uint32)
+                     << np.uint32(26), axis=0)
+    owner = multihost._owner_of_keys(keys, 4)
+    perm = rng.permutation(len(keys))
+    assert np.array_equal(multihost._owner_of_keys(keys[perm], 4),
+                          owner[perm])
+    counts = np.bincount(owner, minlength=4)
+    assert counts.min() > 0.7 * counts.mean()
